@@ -7,28 +7,41 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, one line each (a failing phase raises and the run exits non-zero):
 
-1. build   — compile the hand CUDA kernels from ``src/repro_torch/csrc``
-             (one nvcc per source, in parallel) and report the card;
-2. kernels — each kernel against its plain PyTorch version in bf16 at the
-             serving path's shapes (atol = rtol = 2e-2), with median times of
-             the kernel, the plain version and, as a yardstick only,
-             ``scaled_dot_product_attention`` (``library_ms``);
-3. engine  — full-width mistral_7b (random bf16 weights from a seed) on one
-             ReplicaEngine: a preempted 1536-token prefill resumes bit for
-             bit, and a prefix-cache hit runs the suffix prefill at
-             q_offset 256 and agrees with a from-scratch prefill;
-4. serve   — the same model behind MiniCluster(pecsched) serving 16
-             requests (12 shorts, 4 longs), with each kernel's launch count
-             read around this run (the main path);
-5. profile — torch.profiler over decode iterations at 8 slots: wall and
-             device-busy time per iteration and the top kernels.
+1. build     — compile the hand CUDA kernels from ``src/repro_torch/csrc``
+               (one nvcc per source, in parallel) and report the card;
+2. kernels   — each kernel against its plain PyTorch version in bf16 at the
+               main paths' shapes (atol = rtol = 2e-2), with median times of
+               the kernel, the plain version and, as a yardstick only,
+               ``scaled_dot_product_attention`` (``library_ms``; none for
+               the SSD scan, which no PyTorch call computes);
+3. engine    — full-width mistral_7b (random bf16 weights from a seed) on one
+               ReplicaEngine: a preempted 1536-token prefill resumes bit for
+               bit, and a prefix-cache hit runs the suffix prefill at
+               q_offset 256 and agrees with a from-scratch prefill;
+4. serve     — the same model behind MiniCluster(pecsched) serving 16
+               requests (12 shorts, 4 longs), with each kernel's launch
+               count read around this run (the dense main path);
+5. profile   — torch.profiler over decode iterations at 8 slots: wall and
+               device-busy time per iteration and the top kernels;
+6. ssm       — full-width mamba2_130m, and
+7. hybrid    — full-width zamba2_2_7b (random bf16 weights from seed 0),
+               each through ``launch/quickstart.py``: prefill of 4 x 2048
+               tokens, then 32 greedy decode steps, with launches read
+               around the prefill and around the decode steps (the Mamba2
+               main paths) and checked exactly;
+8. invariant — both models in f32 at full width and 12 layers: after
+               prefill, decode_step's logits equal the last logits of a
+               forward over the extended sequence (the chunked scan on the
+               card against the recurrent step).
 
-Then one JSON line with every kernel's numbers and, last, the result line
+Then one JSON line with every kernel's numbers (launches summed over the
+serve, ssm and hybrid phases) and, last, the result line
 ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -96,12 +109,13 @@ def phase_kernels(torch, dev):
         return err
 
     cases, rows = [], {}
-    H, KV, D = 32, 8, 128
     # flash attention: prefill quantum, suffix after a cache hit, window
-    for name, B, sq, sk, qo, win, ragged in (
-            ("fa_causal_1536", 1, 1536, 1536, 0, 0, False),
-            ("fa_suffix_256_at_256", 1, 256, 512, 256, 0, False),
-            ("fa_window64_512_ragged", 2, 512, 512, 0, 64, True)):
+    # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80)
+    for name, B, H, KV, D, sq, sk, qo, win, ragged in (
+            ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False),
+            ("fa_suffix_256_at_256", 1, 32, 8, 128, 256, 512, 256, 0, False),
+            ("fa_window64_512_ragged", 2, 32, 8, 128, 512, 512, 0, 64, True),
+            ("fa_mha_d80_causal_2048", 4, 32, 32, 80, 2048, 2048, 0, 0, False)):
         q, k, v = rn(B, H, sq, D), rn(B, KV, sk, D), rn(B, KV, sk, D)
         kvl = (torch.tensor([sk, sk - 77], dtype=torch.int32, device=dev)
                if ragged else None)
@@ -132,13 +146,16 @@ def phase_kernels(torch, dev):
                    else "bytes")
         cases.append(dict(case=name, pairs=pairs, **row))
         rows.setdefault("flash_attention", row)
-    # flash decode: 8 slots with ragged cache lengths, with and without window
+    # flash decode: 8 slots with ragged cache lengths, with and without
+    # window (mistral_7b), and zamba2's shared block (MHA, D 80)
     B, S = 8, 2048
-    q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
-    cl = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
-    cl[0] = S
-    for win in (0, 64):
-        name = f"fd_b8_s2048_ragged_win{win}"
+    for name, H, KV, D, win in (("fd_b8_s2048_ragged_win0", 32, 8, 128, 0),
+                                ("fd_b8_s2048_ragged_win64", 32, 8, 128, 64),
+                                ("fd_mha_d80_b8_s2048_ragged", 32, 32, 80, 0)):
+        q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
+        cl = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+        cl[0] = S
         err = check(name, flash_decode(q, k, v, cl, sliding_window=win),
                     torch_decode(q, k, v, cl, sliding_window=win))
         kpos = torch.arange(S, device=dev)[None]
@@ -160,8 +177,54 @@ def phase_kernels(torch, dev):
                    else "operations")
         cases.append(dict(case=name, tokens_read=read, **row))
         rows.setdefault("flash_decode", row)
+    _ssd_cases(torch, dev, g, check, cases, rows)
     _say("kernels", cases=cases)
     return rows
+
+
+def _ssd_cases(torch, dev, g, check, cases, rows):
+    """B3 at both models' prefill shapes (4 x 2048; x, B and C strided views
+    of one conv output, as the model passes them), at the models' own chunks
+    and with a ragged length; y and the final state both checked."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_kernel import ssd_scan, torch_ssd_scan
+    b = 4
+    for name, nh, hd, ns, chunk, s, init in (
+            ("ssd_mamba2_130m_b4_s2048", 24, 64, 128, 256, 2048, True),
+            ("ssd_zamba2_b4_s2048", 80, 64, 64, 64, 2048, False),
+            ("ssd_mamba2_130m_b4_s2000_ragged", 24, 64, 128, 256, 2000, False)):
+        xbc = torch.randn((b, s, nh * hd + 2 * ns), generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
+        B, C = xbc[..., nh * hd:nh * hd + ns], xbc[..., nh * hd + ns:]
+        dt = F.softplus(torch.randn((b, s, nh), generator=g, device=dev) - 3)
+        A = -torch.arange(1, nh + 1, dtype=torch.float32, device=dev)
+        D = torch.ones((nh,), dtype=torch.float32, device=dev)
+        h0 = (torch.randn((b, nh, hd, ns), generator=g, device=dev) * 0.1
+              if init else None)
+        kw = dict(chunk=chunk, init_state=h0, return_state=True)
+        y, h = ssd_scan(x, dt, A, B, C, D, **kw)
+        wy, wh = torch_ssd_scan(x, dt, A, B, C, D, **kw)
+        err = max(check(name + " y", y, wy), check(name + " state", h, wh))
+        # work this input needs: C.B^T once per (batch, chunk) pair t >= u,
+        # scores.x per head, and C.h and the state update per token
+        pairs = sum(n * (n + 1) // 2 for n in
+                    [chunk] * (s // chunk) + ([s % chunk] if s % chunk else []))
+        flops = (2 * b * pairs * ns + 2 * b * nh * pairs * hd
+                 + 4 * b * nh * s * hd * ns)
+        nbytes = (2 * (2 * b * s * nh * hd + 2 * b * s * ns) + 4 * b * s * nh
+                  + 4 * 2 * nh + 4 * b * nh * hd * ns * (2 if init else 1))
+        row = dict(max_abs_err=err, tol=TOL,
+                   ms=_median_ms(lambda: ssd_scan(x, dt, A, B, C, D, **kw)),
+                   plain_ms=_median_ms(lambda: torch_ssd_scan(x, dt, A, B, C, D,
+                                                              **kw), 3, 3),
+                   library_ms=None,
+                   bound_ms=1e3 * max(flops / BF16_FLOPS, nbytes / HBM_BPS),
+                   bound_by="operations" if flops / BF16_FLOPS > nbytes / HBM_BPS
+                   else "bytes")
+        cases.append(dict(case=name, chunk=chunk, flops=flops, bytes=nbytes, **row))
+        rows.setdefault("ssd_scan", row)
 
 
 def phase_engine(torch, dev, cfg, params):
@@ -231,8 +294,6 @@ def phase_engine(torch, dev, cfg, params):
 def phase_serve(torch, dev, cfg, params):
     import numpy as np
 
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.serving import MiniCluster, ServeRequest
 
     max_new = 16
@@ -247,15 +308,9 @@ def phase_serve(torch, dev, cfg, params):
         mc.submit(ServeRequest(rid=i, arrival=t, max_new=max_new, is_long=is_long,
                                tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32)))
         t += float(rng.exponential(0.03))
-    flash_attention.launches = 0
-    flash_decode.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    mc.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_decode": flash_decode.launches}
+    _, wall, counts = _run_counted(torch, mc.run)
+    launches = {n: counts[n] for n in ("flash_attention", "flash_decode")}
     done = {r.rid: r for r in mc.done}
     if len(done) != 16 or any(len(r.generated) != max_new for r in done.values()):
         raise AssertionError("not every request completed with max_new tokens: "
@@ -286,8 +341,6 @@ def phase_profile(torch, dev, cfg, params):
     """Where a decode iteration's time goes at the serving batch (8 slots of
     ~256 cached tokens): wall time per iteration, the device's busy share
     over it and the kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serving.engine import ReplicaEngine
 
     eng = ReplicaEngine(cfg, params, max_len=2048, device=dev)
@@ -302,12 +355,25 @@ def phase_profile(torch, dev, cfg, params):
         slots[eng.admit(rid, st)] = int(eng.prefill_logits(st)[0].argmax())
     for _ in range(2):                               # warm: view built, caches hot
         slots = eng.decode_iteration(slots)
+    state = {"slots": slots}
+
+    def step():
+        state["slots"] = eng.decode_iteration(state["slots"])
+    _say("profile", what="decode_iteration, 8 slots x 256 tokens",
+         **_profile_steps(torch, step, 5))
+    del eng
+
+
+def _profile_steps(torch, step, n):
+    """torch.profiler over n calls of step(): wall and device-busy time per
+    call, the device's idle share and the kernels taking the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    n = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            slots = eng.decode_iteration(slots)
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_kernel = {}
@@ -323,12 +389,124 @@ def phase_profile(torch, dev, cfg, params):
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us
     busy = sum(per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    _say("profile", what="decode_iteration, 8 slots x 256 tokens",
-         iterations=n, wall_ms_per_iter=1e3 * wall / n,
-         device_busy_ms_per_iter=(1e3 * busy / n) if busy else "not measured",
-         device_idle_share=(1 - busy / wall) if busy else "not measured",
-         top_kernels_ms_per_iter={k[:60]: v / 1e3 / n for k, v in top})
-    del eng
+    return dict(iterations=n, wall_ms_per_iter=1e3 * wall / n,
+                device_busy_ms_per_iter=(1e3 * busy / n) if busy else "not measured",
+                device_idle_share=(1 - busy / wall) if busy else "not measured",
+                top_kernels_ms_per_iter={k[:60]: v / 1e3 / n for k, v in top})
+
+
+def _counters():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd_kernel import ssd_scan
+    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
+            "ssd_scan": ssd_scan}
+
+
+def _run_counted(torch, fn):
+    """fn() with every launch count set to 0 just before it and read just
+    after; returns (fn's result, wall seconds to the card's end, counts)."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {n: c.launches for n, c in counters.items()}
+
+
+def _expect(phase, what, got, want):
+    if got != want:
+        raise AssertionError(f"{phase}: {what} launched {got} times, "
+                             f"expected {want}")
+
+
+def phase_mamba(torch, dev, phase, arch):
+    """A Mamba2 main path at full width in bf16 (random weights from seed
+    0) through launch/quickstart.py: prefill 4 x 2048 tokens, then 32
+    greedy decode steps, with each kernel's launches checked exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import quickstart
+    from repro_torch.models import decode_step, init_params
+
+    cfg = get_config(arch)
+    B, S, N = 4, 2048, 32
+    params = init_params(cfg, seed=0, device=dev)
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+    weights_gb = nbytes(params) / 1e9
+    # warm-up at a short prompt: first-call costs stay out of the timings
+    lg, cache = quickstart.start(cfg, params, quickstart.make_prompt(
+        cfg, B, 64, seed=1, device=dev), 64 + 3)
+    quickstart.greedy(cfg, params, cache, lg, 3)
+    prompt = quickstart.make_prompt(cfg, B, S, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (lg, cache), prefill_s, pre = _run_counted(
+        torch, lambda: quickstart.start(cfg, params, prompt, S + N + 8))
+    prefill_finite = bool(torch.isfinite(lg).all())
+    (toks, finite), decode_s, dec = _run_counted(
+        torch, lambda: quickstart.greedy(cfg, params, cache, lg, N + 1))
+    if not (prefill_finite and finite):
+        raise AssertionError(f"{phase}: a logit is not finite")
+    if not all(0 <= int(t.min()) and int(t.max()) < cfg.vocab_size for t in toks):
+        raise AssertionError(f"{phase}: a generated token is out of the vocab")
+    n_attn = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    _expect(phase, "ssd_scan per prefill", pre["ssd_scan"], cfg.num_layers)
+    _expect(phase, "flash_attention per prefill", pre["flash_attention"], n_attn)
+    _expect(phase, "flash_decode per prefill", pre["flash_decode"], 0)
+    _expect(phase, "flash_decode per decode step", dec["flash_decode"], n_attn * N)
+    _expect(phase, "ssd_scan/flash_attention in decode",
+            dec["ssd_scan"] + dec["flash_attention"], 0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # where a decode step's time goes: 4 more steps under the profiler
+    prof = _profile_steps(torch, lambda: decode_step(cfg, params, cache, toks[-1]), 4)
+    _say(phase, arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, weights_gb=weights_gb, batch=B, prompt_len=S,
+         prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
+         decode_steps=N, decode_ms_per_step=1e3 * decode_s / N,
+         decode_tokens_per_s=B * N / decode_s, launches_prefill=pre,
+         launches_decode=dec, logits_finite=True, max_memory_allocated_gb=peak_gb,
+         decode_step_profile=prof)
+    return {n: pre[n] + dec[n] for n in pre}
+
+
+def phase_invariant(torch, dev):
+    """The serving invariant on the card, in f32 at full width and 12
+    layers (two hybrid segments): prefill's logits equal the last logits of
+    forward (1e-3), and decode_step's after prefill equal forward's over
+    the extended sequence (5e-3), the tolerances of tests/test_models.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import quickstart
+    from repro_torch.models import decode_step, forward, init_params
+
+    errs = {}
+    for arch in ("mamba2_130m", "zamba2_2_7b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=12,
+                                  dtype="float32")
+        params = init_params(cfg, seed=0, device=dev)
+        prompt = quickstart.make_prompt(cfg, 2, 300, seed=2, device=dev)
+        logits, _ = forward(cfg, params, {"tokens": prompt})
+        lg, cache = quickstart.start(cfg, params, prompt, 301)
+        tok = lg.argmax(-1)
+        lg2, _ = decode_step(cfg, params, cache, tok)
+        full, _ = forward(cfg, params,
+                          {"tokens": torch.cat([prompt, tok[:, None]], 1)})
+        for what, got, want, tol in (("prefill", lg, logits[:, -1], 1e-3),
+                                     ("decode", lg2, full[:, -1], 5e-3)):
+            err = (got - want).abs().max().item()
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                raise AssertionError(f"invariant: {arch} {what} logits differ "
+                                     f"from forward by {err} (tol {tol})")
+            errs[f"{arch}_{what}_max_abs_err"] = err
+        del params, cache
+    _say("invariant", layers=12, dtype="float32", batch=2, prompt_len=300,
+         tol_prefill=1e-3, tol_decode=5e-3, **errs)
 
 
 def main() -> int:
@@ -347,6 +525,8 @@ def main() -> int:
     from repro_torch.models import init_params
 
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -368,14 +548,24 @@ def main() -> int:
          weights_gb=torch.cuda.memory_allocated() / 1e9)
     phase_engine(torch, dev, cfg, params)
     torch.cuda.empty_cache()
-    launches = phase_serve(torch, dev, cfg, params)
+    launches = dict.fromkeys(_counters(), 0)
+    launches.update(phase_serve(torch, dev, cfg, params))
     torch.cuda.empty_cache()
     phase_profile(torch, dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    for phase, arch in (("ssm", "mamba2_130m"), ("hybrid", "zamba2_2_7b")):
+        for name, n in phase_mamba(torch, dev, phase, arch).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
+    phase_invariant(torch, dev)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:85"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
-                                "src/repro/kernels/flash_decode.py:72")}
+                                "src/repro/kernels/flash_decode.py:72"),
+               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_kernel.py:74")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name]

@@ -22,20 +22,24 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)   # a private, writable copy
 
 
-def params_from_jax(tree: Dict[str, Any], *, device="cuda") -> Dict[str, Any]:
-    """{"embed", "final_norm", "lm_head", "layers": {"attn": {...},
-    "mlp": {...}, "ln1", "ln2"} with leading L} -> the port's dense params."""
-    layers = tree["layers"]
-    n_layers = np.asarray(layers["ln1"]).shape[0]
+def _leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _leaves(v, fn) for k, v in tree.items()}
+    return fn(np.asarray(tree))
 
-    def layer(i: int) -> Dict[str, Any]:
-        return {"attn": {k: _tensor(np.asarray(v)[i], device)
-                         for k, v in layers["attn"].items()},
-                "mlp": {k: _tensor(np.asarray(v)[i], device)
-                        for k, v in layers["mlp"].items()},
-                "ln1": _tensor(np.asarray(layers["ln1"])[i], device),
-                "ln2": _tensor(np.asarray(layers["ln2"])[i], device)}
-    return {"embed": _tensor(tree["embed"], device),
-            "final_norm": _tensor(tree["final_norm"], device),
-            "lm_head": _tensor(tree["lm_head"], device),
-            "layers": [layer(i) for i in range(n_layers)]}
+
+def params_from_jax(tree: Dict[str, Any], *, device="cuda") -> Dict[str, Any]:
+    """The reference's tree -> the port's params, each leaf keeping its
+    dtype.  {"embed", "final_norm", "lm_head", "layers": {...} with a
+    leading L axis on every leaf} [+ "shared": {...} unstacked (hybrid)];
+    "layers" holds {"attn", "mlp", "ln1", "ln2"} (dense) or {"mamba", "ln"}
+    (ssm, hybrid) and becomes one dict per layer."""
+    layers = tree["layers"]
+    n_layers = len(np.asarray(layers["ln1" if "ln1" in layers else "ln"]))
+    p = {name: _tensor(tree[name], device)
+         for name in ("embed", "final_norm", "lm_head")}
+    p["layers"] = [_leaves(layers, lambda a, i=i: _tensor(a[i], device))
+                   for i in range(n_layers)]
+    if "shared" in tree:
+        p["shared"] = _leaves(tree["shared"], lambda a: _tensor(a, device))
+    return p

@@ -247,6 +247,7 @@ cudaError_t dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 32: return launch<T, 32>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
+    case 80: return launch<T, 80>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }

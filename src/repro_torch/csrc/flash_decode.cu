@@ -25,6 +25,11 @@
 // shared memory at the end.  The TPU kernel's sequential grid axis over KV
 // blocks becomes this loop; split-K across blocks (for grids smaller than
 // the 132 SMs) is left for a later version.
+//
+// Head dims: 64, 80 and 128.  The lanes of a row group must be a power of
+// two for the xor-shuffle reductions, so a row takes D/8 lanes rounded up
+// (8, 16, 16); at D 80 lanes 10-15 of each group load nothing and carry
+// zeros for q, k and v, and a warp holds 2 row groups.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,9 +88,15 @@ __device__ __forceinline__ void merge(float* m, float* l, float (*acc)[8],
   m[r] = mn;
 }
 
+__host__ __device__ constexpr int pow2ceil(int v) {
+  int r = 1;
+  while (r < v) r <<= 1;
+  return r;
+}
+
 template <typename T, int D, int NREP>
 __global__ void __launch_bounds__(NT) fd_kernel(const Params p) {
-  constexpr int LPR = D / 8;            // lanes per key row
+  constexpr int LPR = pow2ceil(D / 8);  // lanes per key row (a power of two)
   constexpr int RPW = 32 / LPR;         // row groups per warp
   constexpr int G = NW * RPW;           // row groups per block
   constexpr int U = NREP <= 4 ? 4 : 2;  // rows per group per step
@@ -98,21 +109,28 @@ __global__ void __launch_bounds__(NT) fd_kernel(const Params p) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int sub = lane % LPR;           // which 8 dims of the row
+  const bool on = sub * 8 < D;          // lanes past D hold zeros
+  const int col = on ? sub * 8 : 0;
   const int grp = warp * RPW + lane / LPR;
 
   const int len = min(max(p.cache_len[b], 0), p.S);
   const int lo = p.window > 0 ? max(len - p.window, 0) : 0;
 
   const long long head0 = (long long)b * p.H + (long long)kvh * NREP;
-  const T* qg = static_cast<const T*>(p.q) + head0 * D + sub * 8;
+  const T* qg = static_cast<const T*>(p.q) + head0 * D + col;
   const long long slab = ((long long)b * p.KV + kvh) * (long long)p.S * D;
-  const T* kg = static_cast<const T*>(p.k) + slab + sub * 8;
-  const T* vg = static_cast<const T*>(p.v) + slab + sub * 8;
+  const T* kg = static_cast<const T*>(p.k) + slab + col;
+  const T* vg = static_cast<const T*>(p.v) + slab + col;
 
   float q[NREP][8], acc[NREP][8], m[NREP], l[NREP];
 #pragma unroll
   for (int r = 0; r < NREP; ++r) {
-    load8(qg + (long long)r * D, q[r]);
+    if (on) {
+      load8(qg + (long long)r * D, q[r]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) q[r][j] = 0.f;
+    }
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
@@ -125,7 +143,7 @@ __global__ void __launch_bounds__(NT) fd_kernel(const Params p) {
     float kf[U][8], vf[U][8];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (base + u < len) {
+      if (on && base + u < len) {
         load8(kg + (long long)(base + u) * D, kf[u]);
         load8(vg + (long long)(base + u) * D, vf[u]);
       } else {
@@ -179,7 +197,7 @@ __global__ void __launch_bounds__(NT) fd_kernel(const Params p) {
       merge<NREP>(m, l, acc, r, mo, lo_, ao);
     }
   }
-  if (lane < LPR) {
+  if (lane < LPR && on) {
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
 #pragma unroll
@@ -236,6 +254,7 @@ template <typename T>
 cudaError_t dispatch_d(const Params& p, int B, int D, int n_rep, cudaStream_t s) {
   switch (D) {
     case 64: return dispatch_rep<T, 64>(p, B, n_rep, s);
+    case 80: return dispatch_rep<T, 80>(p, B, n_rep, s);
     case 128: return dispatch_rep<T, 128>(p, B, n_rep, s);
     default: return cudaErrorInvalidValue;
   }

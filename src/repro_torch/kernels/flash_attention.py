@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

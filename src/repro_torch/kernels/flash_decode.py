@@ -17,7 +17,7 @@ from repro_torch.kernels.flash_attention import torch_attention
 from repro_torch.kernels.ref import NEG_INF, _repeat_kv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 128)
 _N_REP = (1, 2, 4, 7, 8)
 
 

@@ -5,14 +5,18 @@
             tensors (the wrappers decide from the tensor's device, and a CUDA
             tensor never falls back)
   "torch" — the plain version: chunked online-softmax attention, the twin of
-            the reference's ``ops.xla_attention`` / ``_decode_xla_window``
-  "ref"   — the naive full-materialisation oracle (small shapes only)
+            the reference's ``ops.xla_attention`` / ``_decode_xla_window``;
+            the chunked SSD, the twin of ``_ssd_chunked_xla``
+  "ref"   — the naive oracle (small shapes only): full-materialisation
+            attention, the sequential SSD scan
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention, torch_attention
 from repro_torch.kernels.flash_decode import flash_decode, torch_decode
+from repro_torch.kernels.ssd_kernel import ssd_scan as _ssd_kernel
+from repro_torch.kernels.ssd_kernel import torch_ssd_scan
 
 
 def attention(q, k, v, *, causal=True, sliding_window=0, q_offset=0,
@@ -39,3 +43,23 @@ def decode_attention(q, k, v, cache_len, *, sliding_window=0, impl="auto"):
         return _ref.decode_attention_reference(q, k, v, cache_len,
                                                sliding_window=sliding_window)
     raise ValueError(f"unknown impl {impl}")
+
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk=256, init_state=None,
+             return_state=False, impl="auto"):
+    """Mamba2 SSD over a whole sequence.  x (b,s,nh,hd), dt (b,s,nh), A/D
+    (nh,), B/C (b,s,ns); returns y [, the final f32 state (b,nh,hd,ns)]."""
+    kw = dict(init_state=init_state, return_state=return_state)
+    if impl == "auto":
+        return _ssd_kernel(x, dt, A, B, C, D, chunk=chunk, **kw)
+    if impl == "torch":
+        return torch_ssd_scan(x, dt, A, B, C, D, chunk=chunk, **kw)
+    if impl == "ref":
+        return _ref.ssd_reference(x, dt, A, B, C, D, **kw)
+    raise ValueError(f"unknown impl {impl}")
+
+
+def ssd_step(x, dt, A, B, C, D, state):
+    """Decode-time single step, plain PyTorch as in the reference (a few
+    elementwise ops and two small contractions per layer)."""
+    return _ref.ssd_step_reference(x, dt, A, B, C, D, state)

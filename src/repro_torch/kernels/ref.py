@@ -1,8 +1,10 @@
-"""Naive full-materialisation oracles: torch twins of the reference's
-``kernels/ref.py`` attention oracles (the SSD ones wait for kernel B3).
+"""Naive oracles: torch twins of the reference's ``kernels/ref.py`` —
+full-materialisation attention, the sequential SSD scan and one SSD decode
+step.
 
 Small shapes only; they are the ground truth for the plain versions in
-``ops.py`` and, on the card, for the hand kernels.
+``ops.py`` and, on the card, for the hand kernels.  ``ssd_step_reference``
+is also the decode path itself (``ops.ssd_step``), as in the reference.
 """
 from __future__ import annotations
 
@@ -74,3 +76,44 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(logits, -1)
     vv = _repeat_kv(v, n_rep).float()
     return torch.einsum("bhk,bhkd->bhd", p, vv).to(q.dtype)
+
+
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                  init_state: Optional[torch.Tensor] = None,
+                  return_state: bool = False):
+    """Mamba2 SSD sequential-scan oracle.
+
+    x (b, s, nh, hd); dt (b, s, nh) softplus-activated step sizes; A, D
+    (nh,); B, C (b, s, ns); state (b, nh, hd, ns) f32.
+    y = C·h + D*x with h_t = exp(A*dt_t) h_{t-1} + dt_t * (x_t ⊗ B_t)."""
+    b, s, nh, hd = x.shape
+    ns = B.shape[-1]
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    Af = A.float()
+    h = (torch.zeros((b, nh, hd, ns), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(Af[None] * dtf[:, t])                       # (b, nh)
+        dBx = torch.einsum("bnh,bs->bnhs", xf[:, t] * dtf[:, t, :, None],
+                           Bf[:, t])
+        h = h * decay[..., None, None] + dBx
+        ys.append(torch.einsum("bnhs,bs->bnh", h, Cf[:, t]))
+    y = torch.stack(ys, 1) + D.float()[None, None, :, None] * xf
+    y = y.to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_step_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                       state: torch.Tensor):
+    """One decode step.  x (b, nh, hd), dt (b, nh), B/C (b, ns), state
+    (b, nh, hd, ns) f32; returns (y in x's dtype, the new state)."""
+    xf = x.float()
+    decay = torch.exp(A.float()[None] * dt)                           # (b, nh)
+    dBx = torch.einsum("bnh,bs->bnhs", xf * dt[..., None], B.float())
+    state = state * decay[..., None, None] + dBx
+    y = torch.einsum("bnhs,bs->bnh", state, C.float())
+    y = y + D.float()[None, :, None] * xf
+    return y.to(x.dtype), state

@@ -38,6 +38,9 @@ def main() -> None:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family != "dense":
+        raise SystemExit("the engine serves the dense family; use "
+                         "repro_torch.launch.quickstart for the others")
     if args.layers:
         cfg = dataclasses.replace(reduced_config(cfg, layers=args.layers),
                                   dtype="float32")

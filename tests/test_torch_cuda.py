@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention, torch_attention
 from repro_torch.kernels.flash_decode import flash_decode, torch_decode
+from repro_torch.kernels.ssd_kernel import ssd_scan, torch_ssd_scan
 
 
 @pytest.fixture
@@ -20,6 +21,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels build and run "
                     "only on the card")
+    # the plain versions' f32 products in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -48,6 +52,68 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
             flash_decode(q, k, v, cl, sliding_window=win).float(),
             torch_decode(q, k, v, cl, sliding_window=win).float(),
             atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_kernels_at_head_dim_80(cuda, dtype, tol):
+    """B1 and B2 at the hybrid's attention width: D 80, MHA (n_rep 1)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+    q, k, v = rn(2, 4, 130, 80), rn(2, 4, 130, 80), rn(2, 4, 130, 80)
+    kvl = torch.tensor([130, 101], dtype=torch.int32, device=cuda)
+    for kw in (dict(causal=True), dict(causal=True, sliding_window=33, kv_len=kvl)):
+        torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
+                                   torch_attention(q, k, v, **kw).float(),
+                                   atol=tol, rtol=tol)
+    q, k, v = rn(3, 4, 80), rn(3, 4, 300, 80), rn(3, 4, 300, 80)
+    cl = torch.tensor([1, 177, 300], dtype=torch.int32, device=cuda)
+    for win in (0, 64):
+        torch.testing.assert_close(
+            flash_decode(q, k, v, cl, sliding_window=win).float(),
+            torch_decode(q, k, v, cl, sliding_window=win).float(),
+            atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("chunk,s,nh,hd,ns,init", [(64, 200, 4, 64, 64, True),
+                                                   (256, 300, 3, 32, 128, True),
+                                                   (256, 70, 2, 64, 16, False),
+                                                   (64, 64, 5, 16, 32, False)])
+def test_ssd_kernel_matches_plain(cuda, dtype, tol, chunk, s, nh, hd, ns, init):
+    """B3 against `torch_ssd_scan` at the caller's chunk (the kernel tiles
+    in its own 64), ragged lengths, an entering state, and x, B, C as
+    strided views of one conv output, as the model passes them.
+
+    dt is drawn in the range Mamba2 initialises it to (~0.02-0.05).  With
+    dt ~0.2 the plain version's own f32 rounding at chunk 256 reaches
+    ~5e-5 on y: its log-decay within the chunk grows to ~100, and one ulp
+    of that enters every decay factor (an H100 run showed 4 of 57,600
+    elements past 2e-5); the kernel's 64-token tiles keep it 4x smaller."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    b = 2
+    xbc = torch.randn((b, s, nh * hd + 2 * ns), generator=g, device=cuda).to(dtype)
+    x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
+    B, C = xbc[..., nh * hd:nh * hd + ns], xbc[..., nh * hd + ns:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=g, device=cuda) - 4)
+    A = -torch.arange(1, nh + 1, dtype=torch.float32, device=cuda)
+    D = torch.randn((nh,), generator=g, device=cuda)
+    h0 = (torch.randn((b, nh, hd, ns), generator=g, device=cuda) * 0.1
+          if init else None)
+    before = ssd_scan.launches
+    y, h = ssd_scan(x, dt, A, B, C, D, chunk=chunk, init_state=h0,
+                    return_state=True)
+    wy, wh = torch_ssd_scan(x, dt, A, B, C, D, chunk=chunk, init_state=h0,
+                            return_state=True)
+    assert ssd_scan.launches == before + 1
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, wh, atol=tol, rtol=tol)
 
 
 def _to(tree, dev):
@@ -91,3 +157,41 @@ def test_engine_on_card_matches_cpu(cuda):
     assert out[1][1] == out[0][1]
     assert flash_attention.launches > before[0]
     assert flash_decode.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("mamba2_130m", 2), ("zamba2_2_7b", 4)])
+def test_ssm_models_on_card_match_cpu(cuda, arch, layers):
+    """Reduced f32 ssm and hybrid models on the card (B3, and B1/B2 in the
+    hybrid's shared block) against the CPU (plain versions): forward
+    logits, prefill and 4 decode steps to 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model as mdl
+    cfg = dataclasses.replace(reduced_config(get_config(arch), layers=layers),
+                              dtype="float32")
+    params = mdl.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 70),
+                           generator=torch.Generator().manual_seed(4))
+    runs = []
+    before = ssd_scan.launches, flash_attention.launches, flash_decode.launches
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        tokens = prompt.to(dev)
+        logits, _ = mdl.forward(cfg, p, {"tokens": tokens})
+        lg, cache = mdl.prefill(cfg, p, {"tokens": tokens},
+                                mdl.init_cache(cfg, 2, 80, device=dev))
+        steps = [lg]
+        tok = prompt[:, -1].to(dev)
+        for i in range(4):
+            lg, cache = mdl.decode_step(cfg, p, cache, (tok + i) % cfg.vocab_size)
+            steps.append(lg)
+        runs.append([logits.cpu()] + [t.cpu() for t in steps]
+                    + [cache["ssm"].ssm.cpu()])
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert ssd_scan.launches == before[0] + 2 * layers      # forward + prefill
+    if cfg.family == "hybrid":
+        assert flash_attention.launches > before[1]
+        assert flash_decode.launches > before[2]

@@ -26,7 +26,8 @@ COPIED = ["core/request.py", "core/simulator.py", "core/backend.py",
           "core/cluster.py", "core/coordinator.py", "core/costmodel.py",
           "core/predictor.py", "core/metrics.py", "core/schedulers.py",
           "sp/planner.py", "configs/base.py", "configs/mistral_7b.py",
-          "configs/qwen2_7b.py", "configs/llama3_8b.py"]
+          "configs/qwen2_7b.py", "configs/llama3_8b.py",
+          "configs/mamba2_130m.py", "configs/zamba2_2_7b.py"]
 
 
 def _port_files():
@@ -89,9 +90,9 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["engine", "backend", "cluster", "init",
-                                   "serve_cli"])
+                                   "serve_cli", "quickstart_cli"])
 def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
-    from repro_torch.launch import serve
+    from repro_torch.launch import quickstart, serve
     from repro_torch.models import init_params
     from repro_torch.serving import EngineBackend, MiniCluster, ReplicaEngine
     cfg, params = _tiny()
@@ -101,6 +102,8 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
         "cluster": lambda: MiniCluster(cfg, params),
         "init": lambda: init_params(cfg),
         "serve_cli": serve.main,
+        "quickstart_cli": lambda: quickstart.main(["--arch", "zamba2_2_7b",
+                                                   "--layers", "2"]),
     }
     monkeypatch.setattr(sys, "argv", ["serve", "--layers", "2"])
     with pytest.raises(RuntimeError):
