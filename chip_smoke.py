@@ -8,12 +8,21 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one line each (a failing phase raises and the run exits non-zero):
 
 1. build     — compile the hand CUDA kernels from ``src/repro_torch/csrc``
-               (one nvcc per source, in parallel) and report the card;
+               (one nvcc per source, in parallel), report the card, ptxas's
+               registers and spills, and B1's wgmma (HGMMA) and TMA
+               (UTMALDG) instruction counts from cuobjdump (none: fail);
 2. kernels   — each kernel against its plain PyTorch version in bf16 at the
                main paths' shapes (atol = rtol = 2e-2), with median times of
                the kernel, the plain version and, as a yardstick only,
                ``scaled_dot_product_attention`` (``library_ms``; none for
-               the SSD scan, which no PyTorch call computes);
+               the SSD scan, which no PyTorch call computes).  ``ms`` and
+               ``library_ms`` are device times (calls replayed from a CUDA
+               graph), ``eager_ms`` and ``library_eager_ms`` the same calls
+               issued one by one (host launch cost included); each case has
+               its bound, ``tflops`` and ``share_of_bound`` (bound / ms).
+               Two identical B1 calls must be bit-equal, and untimed edge
+               cases hold B1 and B2 to their plain versions at the edges
+               of their tiles and splits (``edge_cases``);
 3. engine    — full-width mistral_7b (random bf16 weights from a seed) on one
                ReplicaEngine: a preempted 1536-token prefill resumes bit for
                bit, and a prefix-cache hit runs the suffix prefill at
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -77,6 +87,35 @@ def _median_ms(fn, reps: int = 10, trials: int = 5) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(fn, reps: int = 20, trials: int = 5) -> float:
+    """Device time per call: median over `trials` of one replay of a CUDA
+    graph holding `reps` calls, timed with CUDA events.  Unlike
+    `_median_ms`, this leaves out the host's cost of each launch, which
+    bounds a short kernel's eager time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm-up outside capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def _visible_pairs(sq, kv_len, causal, window, q_offset):
     """(query, key) pairs attention must compute for these inputs, per
     batch element: the work the data needs, not the padded maximum."""
@@ -90,11 +129,42 @@ def _visible_pairs(sq, kv_len, causal, window, q_offset):
     return total
 
 
+def _timed(row, flops, nbytes):
+    """Add to a case the bound (the larger of operations over the bf16 peak
+    and bytes over the memory rate), the achieved rate and the share of the
+    bound the kernel reaches (bound_ms / ms)."""
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BPS
+    row.update(bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops > t_bytes else "bytes",
+               tflops=flops / (row["ms"] * 1e-3) / 1e12,
+               share_of_bound=1e3 * max(t_ops, t_bytes) / row["ms"])
+    return row
+
+
+def _sass_counts(lib_path):
+    """Tensor-core (HGMMA, i.e. wgmma) and TMA (UTMALDG) instructions in each
+    tensor-core kernel of a built library, read back with cuobjdump."""
+    from repro_torch.kernels import _build
+    exe = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(exe), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        m = re.search(r"fa_tc_kernelILi(\d+)E", chunk.split("\n", 1)[0])
+        if m:
+            counts[f"fa_tc_kernel<{m.group(1)}>"] = {
+                op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("HGMMA", "UTMALDG")}
+    if len(counts) != 3 or not all(min(c.values()) > 0 for c in counts.values()):
+        raise AssertionError(f"B1's tensor-core kernels lack wgmma or TMA: {counts}")
+    return counts
+
+
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention, torch_attention
-    from repro_torch.kernels.flash_decode import flash_decode, torch_decode
+    from repro_torch.kernels.flash_attention import (flash_attention, route,
+                                                     torch_attention)
+    from repro_torch.kernels.flash_decode import flash_decode, split_plan, torch_decode
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -110,18 +180,22 @@ def phase_kernels(torch, dev):
 
     cases, rows = [], {}
     # flash attention: prefill quantum, suffix after a cache hit, window
-    # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80)
+    # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80).
+    # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False),
             ("fa_suffix_256_at_256", 1, 32, 8, 128, 256, 512, 256, 0, False),
             ("fa_window64_512_ragged", 2, 32, 8, 128, 512, 512, 0, 64, True),
             ("fa_mha_d80_causal_2048", 4, 32, 32, 80, 2048, 2048, 0, 0, False)):
-        q, k, v = rn(B, H, sq, D), rn(B, KV, sk, D), rn(B, KV, sk, D)
+        q = rn(B, sq, H, D).transpose(1, 2)
+        k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kvl = (torch.tensor([sk, sk - 77], dtype=torch.int32, device=dev)
                if ragged else None)
         kw = dict(causal=True, sliding_window=win, q_offset=qo, kv_len=kvl)
-        err = check(name, flash_attention(q, k, v, **kw),
-                    torch_attention(q, k, v, **kw))
+        got = flash_attention(q, k, v, **kw)
+        err = check(name, got, torch_attention(q, k, v, **kw))
+        if not torch.equal(got, flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"{name}: two identical calls differ")
         kl = kvl.tolist() if ragged else [sk] * B
         qpos = torch.arange(sq, device=dev)[:, None] + qo
         kpos = torch.arange(sk, device=dev)[None]
@@ -137,13 +211,14 @@ def phase_kernels(torch, dev):
         flops = 4 * H * D * pairs
         k_rows = sum(min(x, sq + qo) for x in kl)
         nbytes = 2 * (2 * B * H * sq * D + 2 * KV * k_rows * D)
-        row = dict(max_abs_err=err, tol=TOL,
-                   ms=_median_ms(lambda: flash_attention(q, k, v, **kw)),
-                   plain_ms=_median_ms(lambda: torch_attention(q, k, v, **kw), 3, 3),
-                   library_ms=_median_ms(lib),
-                   bound_ms=1e3 * max(flops / BF16_FLOPS, nbytes / HBM_BPS),
-                   bound_by="operations" if flops / BF16_FLOPS > nbytes / HBM_BPS
-                   else "bytes")
+        row = _timed(dict(max_abs_err=err, tol=TOL, bit_equal_repeat=True,
+                         route=route(q.dtype, D),
+                         ms=_graph_ms(lambda: flash_attention(q, k, v, **kw)),
+                         eager_ms=_median_ms(lambda: flash_attention(q, k, v, **kw)),
+                         plain_ms=_median_ms(lambda: torch_attention(q, k, v, **kw),
+                                             3, 3),
+                         library_ms=_graph_ms(lib),
+                         library_eager_ms=_median_ms(lib)), flops, nbytes)
         cases.append(dict(case=name, pairs=pairs, **row))
         rows.setdefault("flash_attention", row)
     # flash decode: 8 slots with ragged cache lengths, with and without
@@ -166,20 +241,77 @@ def phase_kernels(torch, dev):
         read = sum(min(x, win) if win else x for x in cl.tolist())
         nbytes = 2 * (2 * KV * D * read + 2 * B * H * D)
         flops = 4 * H * D * read
-        row = dict(max_abs_err=err, tol=TOL,
-                   ms=_median_ms(lambda: flash_decode(q, k, v, cl, sliding_window=win)),
-                   plain_ms=_median_ms(lambda: torch_decode(q, k, v, cl,
-                                                            sliding_window=win)),
-                   library_ms=_median_ms(lambda: F.scaled_dot_product_attention(
-                       q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
-                   bound_ms=1e3 * max(flops / BF16_FLOPS, nbytes / HBM_BPS),
-                   bound_by="bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS
-                   else "operations")
-        cases.append(dict(case=name, tokens_read=read, **row))
+        n_split, chunk = split_plan(B, KV, S, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        row = _timed(dict(max_abs_err=err, tol=TOL,
+                         ms=_graph_ms(lambda: flash_decode(q, k, v, cl,
+                                                           sliding_window=win)),
+                         eager_ms=_median_ms(lambda: flash_decode(q, k, v, cl,
+                                                                  sliding_window=win)),
+                         plain_ms=_median_ms(lambda: torch_decode(
+                             q, k, v, cl, sliding_window=win)),
+                         library_ms=_graph_ms(sdpa),
+                         library_eager_ms=_median_ms(sdpa)), flops, nbytes)
+        cases.append(dict(case=name, tokens_read=read, n_split=n_split,
+                          split_keys=chunk, blocks=KV * B * n_split, **row))
         rows.setdefault("flash_decode", row)
+    edges = _edge_cases(torch, dev, rn, check)
     _ssd_cases(torch, dev, g, check, cases, rows)
-    _say("kernels", cases=cases)
+    _say("kernels", cases=cases, edge_cases=edges)
     return rows
+
+
+def _edge_cases(torch, dev, rn, check):
+    """B1 and B2 in bf16 at the edges of their tiling and splits, each
+    against its plain version (2e-2), untimed: B1 with ragged Sq/Sk, a
+    q_offset with Sq < Sk, a window across tile edges, ragged kv_len and
+    rows with no visible key (output 0, LSE -inf where the plain version
+    has it), at D 64/80/128; B2 with cache_len 0, 1, under one split, on a
+    split boundary, one past it and S, with windows across a boundary."""
+    from repro_torch.kernels.flash_attention import flash_attention, torch_attention
+    from repro_torch.kernels.flash_decode import flash_decode, split_plan, torch_decode
+    out = []
+    for name, B, H, KV, D, sq, sk, causal, win, qo, kvl in (
+            ("fa_ragged_100_at_60_of_160_d64", 2, 16, 4, 64, 100, 160, True, 0, 60,
+             [160, 155]),
+            ("fa_window70_200_d128", 1, 32, 8, 128, 200, 200, True, 70, 0, None),
+            ("fa_noncausal_kvlen37_d80", 2, 8, 8, 80, 130, 130, False, 0, 0, [130, 37]),
+            ("fa_empty_rows_d128", 2, 32, 8, 128, 96, 192, True, 17, -8, [192, 0])):
+        q = rn(B, sq, H, D).transpose(1, 2)
+        k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev) if kvl else None
+        kw = dict(causal=causal, sliding_window=win, q_offset=qo, kv_len=kv_len,
+                  return_lse=True)
+        got, lse = flash_attention(q, k, v, **kw)
+        want, want_lse = torch_attention(q, k, v, **kw)
+        empty = torch.isneginf(want_lse)
+        if not (torch.equal(torch.isneginf(lse), empty)
+                and bool((got[empty] == 0).all())):
+            raise AssertionError(f"{name}: empty rows are not 0 with LSE -inf")
+        err = max(check(name, got, want),
+                  check(name + " lse", lse[~empty], want_lse[~empty]))
+        out.append(dict(case=name, empty_rows=int(empty.sum()), max_abs_err=err))
+    B, KV, S = 8, 8, 2048
+    n_split, chunk = split_plan(B, KV, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    cl = torch.tensor([0, 1, chunk // 3, chunk, chunk + 1, S, 2 * chunk - 5, S - 1],
+                      dtype=torch.int32, device=dev)
+    for D, H in ((128, 32), (80, 8), (64, 64)):
+        q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
+        for win in (0, chunk // 2 + 3):
+            name = f"fd_split_edges_d{D}_rep{H // KV}_win{win}"
+            got = flash_decode(q, k, v, cl, sliding_window=win)
+            if not bool((got[0] == 0).all()):
+                raise AssertionError(f"{name}: cache_len 0 did not give 0")
+            err = check(name, got[1:], torch_decode(q, k, v, cl,
+                                                    sliding_window=win)[1:])
+            out.append(dict(case=name, n_split=n_split, split_keys=chunk,
+                            cache_len=cl.tolist(), max_abs_err=err))
+    return out
 
 
 def _ssd_cases(torch, dev, g, check, cases, rows):
@@ -215,14 +347,12 @@ def _ssd_cases(torch, dev, g, check, cases, rows):
                  + 4 * b * nh * s * hd * ns)
         nbytes = (2 * (2 * b * s * nh * hd + 2 * b * s * ns) + 4 * b * s * nh
                   + 4 * 2 * nh + 4 * b * nh * hd * ns * (2 if init else 1))
-        row = dict(max_abs_err=err, tol=TOL,
-                   ms=_median_ms(lambda: ssd_scan(x, dt, A, B, C, D, **kw)),
-                   plain_ms=_median_ms(lambda: torch_ssd_scan(x, dt, A, B, C, D,
-                                                              **kw), 3, 3),
-                   library_ms=None,
-                   bound_ms=1e3 * max(flops / BF16_FLOPS, nbytes / HBM_BPS),
-                   bound_by="operations" if flops / BF16_FLOPS > nbytes / HBM_BPS
-                   else "bytes")
+        row = _timed(dict(max_abs_err=err, tol=TOL,
+                          ms=_graph_ms(lambda: ssd_scan(x, dt, A, B, C, D, **kw)),
+                          eager_ms=_median_ms(lambda: ssd_scan(x, dt, A, B, C, D, **kw)),
+                          plain_ms=_median_ms(lambda: torch_ssd_scan(x, dt, A, B, C, D,
+                                                                     **kw), 3, 3),
+                          library_ms=None), flops, nbytes)
         cases.append(dict(case=name, chunk=chunk, flops=flops, bytes=nbytes, **row))
         rows.setdefault("ssd_scan", row)
 
@@ -531,11 +661,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     build_s = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln
+                 or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
+                     not in ln)]
              for n, log in _build.build_logs.items()}
     _say("build", build_s=build_s, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         nvidia_smi=smi, ptxas_registers=ptxas)
+         nvidia_smi=smi, ptxas_registers=ptxas,
+         b1_sass=_sass_counts(_build._lib_path("flash_attention")))
     print(smi.splitlines()[0], flush=True)
 
     rows = phase_kernels(torch, dev)

@@ -1,15 +1,18 @@
-"""Prefill attention: the hand CUDA kernel (``csrc/flash_attention.cu``,
+"""Prefill attention: the hand CUDA kernels (``csrc/flash_attention.cu``,
 replacing the Pallas kernel B1) and its plain PyTorch version.
 
-`flash_attention` launches the kernel for CUDA tensors and runs the plain
-version `torch_attention` only for tensors on the CPU.  `torch_attention`
-is the twin of the reference's ``ops.xla_attention``: chunked online
-softmax with true -inf masking, so a row with no visible key gives 0 and
-LSE -inf.
+`flash_attention` launches a kernel for CUDA tensors and runs the plain
+version `torch_attention` only for tensors on the CPU.  Of the two kernels,
+`route` picks by dtype and head dim: bf16 at D 64, 80 and 128 goes to the
+tensor-core kernel (wgmma + TMA), float32 and bf16 D 32 to the CUDA-core
+one.  `torch_attention` is the twin of the reference's
+``ops.xla_attention``: chunked online softmax with true -inf masking, so a
+row with no visible key gives 0 and LSE -inf.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -18,6 +21,16 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128)
+_TC_HEAD_DIMS = (64, 80, 128)
+ROUTES = ("simt", "tc")
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel takes these inputs: "tc" (tensor cores: wgmma on tiles
+    loaded by TMA) for bf16 at D 64/80/128, else "simt" (f32 FMAs on CUDA
+    cores).  f32 stays off the tensor cores, where it would run as TF32
+    and miss the 2e-5 the f32 path is held to."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS else "simt"
 
 
 def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -72,17 +85,33 @@ def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
-def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"flash_attention: {name} is on {t.device}, not CUDA")
+@functools.lru_cache(maxsize=None)
+def _fa_forward():
+    fn = _build.load("flash_attention").fa_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     if t.dtype != dtype:
         raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {dtype}")
     align = 16 // t.element_size()
     if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]) \
-            or t.data_ptr() % 16:
+            or t.storage_offset() % align:
         raise ValueError(f"flash_attention: {name} needs a contiguous last dim, "
                          f"strides that are multiples of {align} elements and "
-                         "a 16-byte aligned base (16-byte vector loads)")
+                         "a 16-byte aligned base (TMA boxes, 16-byte loads)")
+
+
+def _check_device(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"flash_attention: {name} is on {t.device}, not CUDA")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} has a base that is not "
+                         "16-byte aligned")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -105,8 +134,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.dtype)
+    operands = (("q", q), ("k", k), ("v", v))
+    for name, t in operands:
+        _check_layout(name, t, q.dtype)
+    for name, t in operands:
+        _check_device(name, t)
     if kv_len is not None:
         if kv_len.shape != (b,) or kv_len.device != q.device:
             raise ValueError("flash_attention: kv_len must be (B,) on q's device")
@@ -114,22 +146,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if sq == 0:
+    if sq == 0 or sk == 0:                 # nothing to launch: no key is visible
+        out.zero_()
+        if lse is not None:
+            lse.fill_(float("-inf"))
         return (out, lse) if return_lse else out
-    lib = _build.load("flash_attention")
-    fn = lib.fa_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    err = _fa_forward()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr() if lse is not None else None,
              kv_len.data_ptr() if kv_len is not None else None,
              b, h, kvh, sq, sk, d,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              int(causal), int(sliding_window), int(q_offset),
              float(scale if scale is not None else d ** -0.5),
-             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+             _DTYPES[q.dtype], ROUTES.index(route(q.dtype, d)),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if return_lse else out

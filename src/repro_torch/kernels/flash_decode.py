@@ -5,10 +5,16 @@ replacing the Pallas kernel B2) and its plain PyTorch version.
 version `torch_decode` only for tensors on the CPU.  `torch_decode` twins
 the reference's ``ops.decode_attention(impl="xla")``: chunked attention with
 ``kv_len=cache_len`` without a window, and ``_decode_xla_window`` with one.
+
+The kernel splits the key axis across blocks (`split_plan`), each writing
+an f32 online-softmax partial that a second kernel merges in split order;
+`split_decode` is the same arithmetic in plain PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -19,6 +25,68 @@ from repro_torch.kernels.ref import NEG_INF, _repeat_kv
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 80, 128)
 _N_REP = (1, 2, 4, 7, 8)
+_SPLIT_ALIGN = 64            # keys: a split's length is a multiple of this
+_BLOCKS_PER_SM = 4           # grid the split aims at
+
+
+def split_plan(b: int, kvh: int, s: int, n_sms: int) -> Tuple[int, int]:
+    """(n_split, chunk): split i covers keys [i * chunk, (i + 1) * chunk).
+    From the shapes and the card's SM count only (cache_len lies on the
+    device): enough splits that the (KV, B, n_split) grid puts about
+    `_BLOCKS_PER_SM` blocks on every SM, each split a multiple of 64 keys.
+    8 sequences x KV 8 x 2048 keys on 132 SMs: 8 splits of 256, 512 blocks."""
+    want = -(-_BLOCKS_PER_SM * n_sms // max(b * kvh, 1))
+    n = max(1, min(want, -(-s // _SPLIT_ALIGN)))
+    chunk = -(-(-(-s // n)) // _SPLIT_ALIGN) * _SPLIT_ALIGN
+    return max(1, -(-s // chunk)), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _fd_forward():
+    fn = _build.load("flash_decode").fd_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def split_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cache_len: torch.Tensor, *, sliding_window: int = 0,
+                 n_split: int, chunk: int) -> torch.Tensor:
+    """The kernel's split-and-merge arithmetic in plain PyTorch (f32): each
+    split's (m, l, acc) over keys [max(lo, i * chunk), min(len, (i + 1) *
+    chunk)), an empty split m = -inf, merged in split order."""
+    b, h, d = q.shape
+    s = k.shape[2]
+    n_rep = h // k.shape[1]
+    logits = torch.einsum("bhd,bhkd->bhk", q.float(),
+                          _repeat_kv(k, n_rep).float()) * d ** -0.5
+    vf = _repeat_kv(v, n_rep).float()
+    kpos = torch.arange(s, device=q.device)[None]
+    length = cache_len.to(q.device).long().clamp(0, s)[:, None]
+    lo = (length - sliding_window).clamp_min(0) if sliding_window else 0
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        valid = ((kpos >= lo) & (kpos < length) & (kpos >= i * chunk)
+                 & (kpos < (i + 1) * chunk))[:, None]            # (B, 1, S)
+        x = torch.where(valid, logits, float("-inf"))
+        m = x.amax(-1)                                           # (B, H)
+        p = torch.exp(x - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhk,bhkd->bhd", p, vf))
+    m_all = torch.stack(ms)                                      # (n_split, B, H)
+    mx = m_all.amax(0)
+    c = torch.where(torch.isneginf(m_all), 0.0,
+                    torch.exp(m_all - torch.where(torch.isneginf(mx), 0.0, mx)))
+    den = (torch.stack(ls) * c).sum(0)
+    num = (torch.stack(accs) * c[..., None]).sum(0)
+    return (num / den.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def torch_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,29 +127,39 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or h // kvh not in _N_REP or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_decode: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.dtype != q.dtype:
-            raise ValueError(f"flash_decode: {name} is {t.dtype} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_decode: {name} must be contiguous and "
-                             "16-byte aligned")
+    operands = (("q", q), ("k", k), ("v", v))
+    for name, t in operands:
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_decode: {name} is {t.dtype}, q is {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_decode: {name} must be contiguous")
+    for name, t in operands:
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_decode: {name} is on {t.device}, not CUDA")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_decode: {name} must be 16-byte aligned")
     if cache_len.shape != (b,) or cache_len.device != q.device:
         raise ValueError("flash_decode: cache_len must be (B,) on q's device")
     cache_len = cache_len.to(torch.int32).contiguous()
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    lib = _build.load("flash_decode")
-    fn = lib.fd_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             cache_len.data_ptr(), b, h, kvh, s, d, int(sliding_window),
-             float(d ** -0.5), _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    if b == 0 or s == 0:                  # nothing to launch: no key is cached
+        return out.zero_()
+    n_split, chunk = split_plan(b, kvh, s, _n_sms(q.device.index or 0))
+    # f32 partials of every (batch, head, split): acc (.., D), then (m, l)
+    part = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    part_acc = part.data_ptr()
+    err = _fd_forward()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        cache_len.data_ptr(), part_acc,
+                        part_acc + 4 * b * h * n_split * d,
+                        b, h, kvh, s, d, int(sliding_window), n_split, chunk,
+                        float(d ** -0.5), _DTYPES[q.dtype],
+                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
     return out
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: calls that launched the kernels (split + combine count as one) since
+#: the count was last set to 0
 flash_decode.launches = 0

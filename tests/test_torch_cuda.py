@@ -11,8 +11,9 @@ rounding of the output plus reordered f32 sums).
 import pytest
 import torch
 
+from repro_torch.kernels import flash_decode as fd_mod
 from repro_torch.kernels.flash_attention import flash_attention, torch_attention
-from repro_torch.kernels.flash_decode import flash_decode, torch_decode
+from repro_torch.kernels.flash_decode import flash_decode, split_plan, torch_decode
 from repro_torch.kernels.ssd_kernel import ssd_scan, torch_ssd_scan
 
 
@@ -76,6 +77,80 @@ def test_cuda_kernels_at_head_dim_80(cuda, dtype, tol):
             flash_decode(q, k, v, cl, sliding_window=win).float(),
             torch_decode(q, k, v, cl, sliding_window=win).float(),
             atol=tol, rtol=tol)
+
+
+B1_EDGE_CASES = [
+    # b, sq, sk, causal, win, q_offset, kv_len (None: sk)
+    (2, 100, 160, True, 0, 60, (160, 155)),      # ragged tiles, Sq < Sk at an offset
+    (1, 200, 200, True, 70, 0, None),            # window across 64-key tile edges
+    (2, 130, 130, False, 0, 0, (130, 37)),       # not causal, ragged kv_len
+    (2, 64, 64, True, 17, 0, (64, 0)),           # a sequence with no key at all
+    (1, 40, 96, True, 0, -8, None),              # rows 0-7 see no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_attention_edges_match_plain(cuda, dtype, tol, d, n_rep):
+    """B1 on both routes (bf16 D 64/80/128: tensor cores; f32: CUDA
+    cores) against `torch_attention`: ragged Sq/Sk, q_offset with Sq < Sk,
+    windows across tile edges, ragged kv_len, rows with no visible key
+    (output 0 and LSE -inf where the plain version has them), and a
+    bit-equal repeat of the same call.  q is a transposed (B, S, H, D)
+    view, as `attention_block` passes it."""
+    g = torch.Generator(device=cuda).manual_seed(d + n_rep)
+    kvh = 2
+    h = kvh * n_rep
+    for b, sq, sk, causal, win, qo, kvl in B1_EDGE_CASES:
+        q = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
+        k = torch.randn((b, kvh, sk, d), generator=g, device=cuda).to(dtype)
+        v = torch.randn((b, kvh, sk, d), generator=g, device=cuda).to(dtype)
+        kv_len = (torch.tensor(kvl, dtype=torch.int32, device=cuda)
+                  if kvl is not None else None)
+        kw = dict(causal=causal, sliding_window=win, q_offset=qo, kv_len=kv_len,
+                  return_lse=True)
+        out, lse = flash_attention(q, k, v, **kw)
+        want, want_lse = torch_attention(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+        empty = torch.isneginf(want_lse)
+        assert torch.equal(torch.isneginf(lse), empty)
+        assert (out.float()[empty] == 0).all()
+        torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=tol, rtol=tol)
+        again, again_lse = flash_attention(q, k, v, **kw)
+        assert torch.equal(again, out) and torch.equal(again_lse, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d,n_rep", [(64, 4), (80, 1), (128, 4), (128, 8)])
+def test_decode_split_edges_match_plain(cuda, dtype, tol, d, n_rep):
+    """B2's split key axis against `torch_decode`: cache_len 0, 1, less
+    than one split, exactly a split boundary, one past it, and S; windows
+    that cross a split boundary; the merge is deterministic."""
+    g = torch.Generator(device=cuda).manual_seed(d * n_rep)
+    b, kvh, s = 8, 2, 1024
+    h = kvh * n_rep
+    n_split, chunk = split_plan(b, kvh, s, fd_mod._n_sms(0))
+    assert n_split > 1
+    q = torch.randn((b, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, kvh, s, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, kvh, s, d), generator=g, device=cuda).to(dtype)
+    cl = torch.tensor([0, 1, chunk // 3, chunk, chunk + 1, s, 2 * chunk - 5, s - 1],
+                      dtype=torch.int32, device=cuda)
+    before = flash_decode.launches
+    for win in (0, 7, chunk // 2 + 3):
+        got = flash_decode(q, k, v, cl, sliding_window=win)
+        want = torch_decode(q, k, v, cl, sliding_window=win)
+        # cache_len 0 gives 0, as the TPU kernel; the reference's windowed
+        # XLA path (and so torch_decode) averages the cache there instead
+        assert (got[0].float() == 0).all()
+        torch.testing.assert_close(got[1:].float(), want[1:].float(), atol=tol, rtol=tol)
+        assert torch.equal(flash_decode(q, k, v, cl, sliding_window=win), got)
+    assert flash_decode.launches == before + 6
 
 
 @pytest.mark.cuda

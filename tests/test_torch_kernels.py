@@ -19,8 +19,10 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.flash_decode import flash_decode as j_flash_decode
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attention import flash_attention, torch_attention
-from repro_torch.kernels.flash_decode import flash_decode, torch_decode
+from repro_torch.kernels.flash_attention import (flash_attention, route,
+                                                 torch_attention)
+from repro_torch.kernels.flash_decode import (flash_decode, split_decode,
+                                              split_plan, torch_decode)
 
 # one intra-op thread: the suite runs several test workers on a few cores,
 # and oversubscribed threads slow these many small CPU ops a hundredfold
@@ -167,3 +169,120 @@ def test_failed_build_and_launch_raise(tmp_path, monkeypatch):
         _build.build_all()
     with pytest.raises(RuntimeError, match="cudaError_t 700"):
         _build.check(700, "flash_decode")
+
+
+@pytest.mark.parametrize("win", [0, 24])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, 8])
+def test_split_decode_matches_jax(n_split, win):
+    """B2's split-and-merge arithmetic (`split_decode`: a partial per key
+    range, empty ranges m = -inf, merged in split order) against the
+    reference's Pallas kernel (interpret mode) and its XLA decode path."""
+    b, h, kv, s, d = 4, 8, 2, 64, 16
+    rng = np.random.default_rng(40 + n_split + win)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, kv, s, d)).astype(np.float32)
+    v = rng.normal(size=(b, kv, s, d)).astype(np.float32)
+    chunk = -(-s // n_split)
+    cl = np.asarray([1, chunk, min(chunk + 1, s), s], np.int32)
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(cl))
+    want = {
+        "pallas": np.asarray(j_flash_decode(*jargs, sliding_window=win,
+                                            block_k=16, interpret=True)),
+        "xla": np.asarray(jops.decode_attention(*jargs, sliding_window=win,
+                                                impl="xla")),
+    }
+    got = split_decode(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), torch.from_numpy(cl),
+                       sliding_window=win, n_split=n_split, chunk=chunk)
+    for name, w in want.items():
+        np.testing.assert_allclose(got.numpy(), w, err_msg=name, **TOL)
+
+
+def test_split_decode_empty_sequence_gives_zero():
+    """cache_len 0: every split is empty and the merge gives 0, as the
+    TPU kernel does, with or without a window."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(2, 2, 32, 8)).astype(np.float32))
+    for win in (0, 5):
+        got = split_decode(q, k, k, torch.tensor([0, 9]), sliding_window=win,
+                           n_split=4, chunk=8)
+        assert (got[0] == 0).all()
+        torch.testing.assert_close(got[1], torch_decode(
+            q, k, k, torch.tensor([0, 9]), sliding_window=win)[1], **TOL)
+
+
+@pytest.mark.parametrize("b,kvh,s,sms,want", [
+    (8, 8, 2048, 132, (8, 256)),       # the serving batch: 512 blocks
+    (8, 32, 2048, 132, (3, 704)),      # zamba2's MHA block: 768 blocks
+    (1, 8, 64, 132, (1, 64)),
+    (4, 8, 300, 132, (5, 64)),
+    (64, 32, 4096, 132, (1, 4096)),    # a grid that fills the card unsplit
+])
+def test_split_plan(b, kvh, s, sms, want):
+    n_split, chunk = split_plan(b, kvh, s, sms)
+    assert (n_split, chunk) == want
+    assert chunk % 64 == 0 and n_split * chunk >= s > (n_split - 1) * chunk
+
+
+def test_attention_route_by_dtype_and_head_dim():
+    """bf16 at D 64/80/128 takes the tensor-core kernel; float32 (held to
+    2e-5, which TF32 would miss) and bf16 D 32 the CUDA-core one."""
+    assert [route(torch.bfloat16, d) for d in (32, 64, 80, 128)] == \
+        ["simt", "tc", "tc", "tc"]
+    assert {route(torch.float32, d) for d in (32, 64, 80, 128)} == {"simt"}
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("dtype", TypeError), ("k_dtype", TypeError), ("head_dim", ValueError),
+    ("gqa", ValueError), ("last_dim_stride", ValueError),
+    ("row_stride", ValueError), ("offset", ValueError), ("device", ValueError),
+])
+def test_attention_wrapper_refuses(case, exc):
+    """What the kernels cannot take is refused before any build or launch
+    (meta tensors: never a CPU fallback, never a launch)."""
+    q, k = _meta(1, 4, 8, 64), _meta(1, 2, 8, 64)
+    if case == "dtype":
+        q, k = _meta(1, 4, 8, 64, dtype=torch.float16), _meta(1, 2, 8, 64, dtype=torch.float16)
+    elif case == "k_dtype":
+        k = _meta(1, 2, 8, 64, dtype=torch.float32)
+    elif case == "head_dim":
+        q, k = _meta(1, 4, 8, 96), _meta(1, 2, 8, 96)
+    elif case == "gqa":
+        q = _meta(1, 3, 8, 64)
+    elif case == "last_dim_stride":
+        q = _meta(1, 4, 64, 8).transpose(2, 3)
+    elif case == "row_stride":                    # rows 68 elements apart
+        q = _meta(1, 4, 8, 68)[..., :64]
+    elif case == "offset":                        # base 2 bytes past 16-byte alignment
+        q = _meta(4 * 8 * 64 + 1)[1:].view(1, 4, 8, 64)
+    before = flash_attention.launches
+    with pytest.raises(exc, match="flash_attention"):
+        flash_attention(q, k, k)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("dtype", TypeError), ("k_dtype", TypeError), ("head_dim", ValueError),
+    ("n_rep", ValueError), ("contiguous", ValueError), ("device", ValueError),
+])
+def test_decode_wrapper_refuses(case, exc):
+    q, k = _meta(2, 8, 64), _meta(2, 2, 16, 64)
+    if case == "dtype":
+        q, k = _meta(2, 8, 64, dtype=torch.float16), _meta(2, 2, 16, 64, dtype=torch.float16)
+    elif case == "k_dtype":
+        k = _meta(2, 2, 16, 64, dtype=torch.float32)
+    elif case == "head_dim":
+        q, k = _meta(2, 8, 32), _meta(2, 2, 16, 32)
+    elif case == "n_rep":
+        q = _meta(2, 6, 64)
+    elif case == "contiguous":
+        k = _meta(2, 16, 2, 64).transpose(1, 2)
+    before = flash_decode.launches
+    with pytest.raises(exc, match="flash_decode"):
+        flash_decode(q, k, k, torch.empty((2,), dtype=torch.int32, device="meta"))
+    assert flash_decode.launches == before
