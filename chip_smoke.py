@@ -12,17 +12,24 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                registers and spills, and B1's wgmma (HGMMA) and TMA
                (UTMALDG) instruction counts from cuobjdump (none: fail);
 2. kernels   — each kernel against its plain PyTorch version in bf16 at the
-               main paths' shapes (atol = rtol = 2e-2), with median times of
-               the kernel, the plain version and, as a yardstick only,
+               main paths' shapes (atol = rtol = 2e-2; B1 also to 5e-3 in
+               ||got - want|| / ||want|| per (batch, head) against the plain
+               version in f32, a limit that a dropped key tile, emulated in
+               the plain version, must exceed), with median times of the
+               kernel, the plain version and, as a yardstick only,
                ``scaled_dot_product_attention`` (``library_ms``; none for
                the SSD scan, which no PyTorch call computes).  ``ms`` and
-               ``library_ms`` are device times (calls replayed from a CUDA
-               graph), ``eager_ms`` and ``library_eager_ms`` the same calls
-               issued one by one (host launch cost included); each case has
-               its bound, ``tflops`` and ``share_of_bound`` (bound / ms).
-               Two identical B1 calls must be bit-equal, and untimed edge
-               cases hold B1 and B2 to their plain versions at the edges
-               of their tiles and splits (``edge_cases``);
+               ``library_ms`` are calls issued one by one, the host's launch
+               cost included, ``host_us`` the wrapper's host work per call;
+               ``graph_ms`` and
+               ``library_graph_ms`` the same calls replayed from a CUDA
+               graph (device time).  A case bound by bytes cycles through
+               copies of its inputs, so what a call reads has left the L2
+               cache.  Each case has its bound, ``tflops`` and
+               ``share_of_bound`` (bound / ms).  Two identical B1 calls must
+               be bit-equal, and untimed edge cases hold B1 and B2 to their
+               plain versions at the edges of their tiles and splits
+               (``edge_cases``);
 3. engine    — full-width mistral_7b (random bf16 weights from a seed) on one
                ReplicaEngine: a preempted 1536-token prefill resumes bit for
                bit, and a prefix-cache hit runs the suffix prefill at
@@ -61,6 +68,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL = 2e-2                      # bf16: atol = rtol
+REL_TOL = 5e-3                  # bf16 B1: ||got - want|| / ||want|| per (batch, head)
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 BF16_FLOPS = 989e12
 
@@ -69,39 +77,54 @@ def _say(phase: str, **fields) -> None:
     print(f"{phase}: {json.dumps(fields)}", flush=True)
 
 
-def _median_ms(fn, reps: int = 10, trials: int = 5) -> float:
-    """Median over `trials` of the mean per-call time of `reps` back-to-back
-    calls, timed with CUDA events after one warm-up call."""
+def _eager(calls, reps: int = 10, trials: int = 5):
+    """(ms, host_us): median over `trials` of the mean per-call time of
+    `reps` back-to-back calls issued one by one, timed with CUDA events
+    after a warm-up call of each, and the host's own time per call (the
+    wrapper's work up to the launch returning).  `calls` is one call or a
+    list taken in turn (`_copies`)."""
     import torch
-    fn()
-    times = []
+    calls = calls if isinstance(calls, list) else [calls]
+    for fn in calls:
+        fn()
+    times, host = [], []
     for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            calls[i % len(calls)]()
+        host.append(1e6 * (time.perf_counter() - t0) / reps)
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / reps)
-    return statistics.median(times)
+    return statistics.median(times), statistics.median(host)
 
 
-def _graph_ms(fn, reps: int = 20, trials: int = 5) -> float:
+def _median_ms(calls, reps: int = 10, trials: int = 5) -> float:
+    """The device-timed part of `_eager`."""
+    return _eager(calls, reps, trials)[0]
+
+
+def _graph_ms(calls, reps: int = 20, trials: int = 5) -> float:
     """Device time per call: median over `trials` of one replay of a CUDA
-    graph holding `reps` calls, timed with CUDA events.  Unlike
-    `_median_ms`, this leaves out the host's cost of each launch, which
-    bounds a short kernel's eager time."""
+    graph holding `reps` calls (taken in turn from `calls`, as in
+    `_eager`), timed with CUDA events.  Unlike `_eager`, this
+    leaves out the host's cost of each launch, which bounds a short
+    kernel's time issued one by one."""
     import torch
+    calls = calls if isinstance(calls, list) else [calls]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):                  # warm-up outside capture
-        fn()
+        for fn in calls:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            calls[i % len(calls)]()
     graph.replay()
     times = []
     for _ in range(trials):
@@ -114,6 +137,36 @@ def _graph_ms(fn, reps: int = 20, trials: int = 5) -> float:
         times.append(start.elapsed_time(stop) / reps)
     del graph
     return statistics.median(times)
+
+
+def _kernel_times(calls):
+    """A kernel's `ms` (issued one by one), `host_us` (its wrapper's host
+    work per call) and `graph_ms` (device time)."""
+    ms, host_us = _eager(calls)
+    return dict(ms=ms, host_us=host_us, graph_ms=_graph_ms(calls))
+
+
+def _copies(torch, dev, nbytes, bound_by, tensors):
+    """`tensors` and, for a case bound by bytes, clones of them: enough
+    sets that cycling through them reads twice the L2 cache's size between
+    two reads of one set, so each call finds its inputs out of L2 as a
+    serving step finds each layer's.  One set for a case bound by
+    operations, whose inputs are reread from L2 by design."""
+    n = 1
+    if bound_by == "bytes":
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        n = 1 + -(-2 * l2 // nbytes)
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def _rel_err(got, want):
+    """Largest ||got - want|| / ||want|| over the (batch, head) slices of
+    (B, H, S, D) outputs, `want` in f32; slices where `want` is all zero
+    (no visible key in any row) are left out."""
+    diff = (got.float() - want).flatten(2).norm(dim=-1)
+    ref = want.flatten(2).norm(dim=-1)
+    keep = ref > 0
+    return (diff[keep] / ref[keep]).max().item() if bool(keep.any()) else 0.0
 
 
 def _visible_pairs(sq, kv_len, causal, window, q_offset):
@@ -129,15 +182,21 @@ def _visible_pairs(sq, kv_len, causal, window, q_offset):
     return total
 
 
-def _timed(row, flops, nbytes):
-    """Add to a case the bound (the larger of operations over the bf16 peak
-    and bytes over the memory rate), the achieved rate and the share of the
-    bound the kernel reaches (bound_ms / ms)."""
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the bf16 peak and
+    bytes over the memory rate."""
     t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BPS
-    row.update(bound_ms=1e3 * max(t_ops, t_bytes),
-               bound_by="operations" if t_ops > t_bytes else "bytes",
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def _timed(row, flops, nbytes):
+    """Add to a case its bound, the achieved rate and the share of the
+    bound the kernel reaches (bound_ms / ms), also on device time."""
+    bound_ms, bound_by = _bound(flops, nbytes)
+    row.update(bound_ms=bound_ms, bound_by=bound_by,
                tflops=flops / (row["ms"] * 1e-3) / 1e12,
-               share_of_bound=1e3 * max(t_ops, t_bytes) / row["ms"])
+               share_of_bound=bound_ms / row["ms"],
+               graph_share_of_bound=bound_ms / row["graph_ms"])
     return row
 
 
@@ -162,8 +221,7 @@ def _sass_counts(lib_path):
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention, route,
-                                                     torch_attention)
+    from repro_torch.kernels.flash_attention import flash_attention, torch_attention
     from repro_torch.kernels.flash_decode import flash_decode, split_plan, torch_decode
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -178,6 +236,13 @@ def phase_kernels(torch, dev):
                                  f"version, max |err| {err} (tol {TOL})")
         return err
 
+    def check_rel(name, got, want):
+        rel = _rel_err(got, want)
+        if not rel < REL_TOL:
+            raise AssertionError(f"{name}: ||got - want|| / ||want|| {rel} in a "
+                                 f"(batch, head) (limit {REL_TOL})")
+        return rel
+
     cases, rows = [], {}
     # flash attention: prefill quantum, suffix after a cache hit, window
     # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80).
@@ -189,36 +254,52 @@ def phase_kernels(torch, dev):
             ("fa_mha_d80_causal_2048", 4, 32, 32, 80, 2048, 2048, 0, 0, False)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
-        kvl = (torch.tensor([sk, sk - 77], dtype=torch.int32, device=dev)
-               if ragged else None)
+        kl = [sk, sk - 77] if ragged else [sk] * B
+        kvl = torch.tensor(kl, dtype=torch.int32, device=dev) if ragged else None
         kw = dict(causal=True, sliding_window=win, q_offset=qo, kv_len=kvl)
         got = flash_attention(q, k, v, **kw)
-        err = check(name, got, torch_attention(q, k, v, **kw))
+        # the plain version in f32 on the same bf16 inputs; rounded to bf16
+        # it is torch_attention(q, k, v) itself
+        want = torch_attention(q.float(), k.float(), v.float(), **kw)
+        err = check(name, got, want.to(q.dtype))
+        rel = check_rel(name, got, want)
+        # the reading of a fault: the last 128-key tile of each sequence
+        # dropped (the plain version with kv_len 128 shorter)
+        fault = _rel_err(torch_attention(q.float(), k.float(), v.float(), **dict(
+            kw, kv_len=torch.tensor(kl, dtype=torch.int32, device=dev) - 128)).to(
+                q.dtype), want)
+        if not fault > REL_TOL:
+            raise AssertionError(f"{name}: a dropped key tile reads {fault}, "
+                                 f"inside the limit {REL_TOL}")
+        del want
         if not torch.equal(got, flash_attention(q, k, v, **kw)):
             raise AssertionError(f"{name}: two identical calls differ")
-        kl = kvl.tolist() if ragged else [sk] * B
         qpos = torch.arange(sq, device=dev)[:, None] + qo
         kpos = torch.arange(sk, device=dev)[None]
         mask = (qpos >= kpos) & ((qpos - kpos < win) if win else True)
         mask = mask[None, None] & (kpos[None, None] < torch.tensor(
             kl, device=dev)[:, None, None, None])
-        lib = ((lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                       enable_gqa=True))
-               if (qo == 0 and win == 0 and not ragged and sq == sk) else
-               (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                       enable_gqa=True)))
+        dense = qo == 0 and win == 0 and not ragged and sq == sk
         pairs = _visible_pairs(sq, kl, True, win, qo)
         flops = 4 * H * D * pairs
         k_rows = sum(min(x, sq + qo) for x in kl)
         nbytes = 2 * (2 * B * H * sq * D + 2 * KV * k_rows * D)
-        row = _timed(dict(max_abs_err=err, tol=TOL, bit_equal_repeat=True,
-                         route=route(q.dtype, D),
-                         ms=_graph_ms(lambda: flash_attention(q, k, v, **kw)),
-                         eager_ms=_median_ms(lambda: flash_attention(q, k, v, **kw)),
-                         plain_ms=_median_ms(lambda: torch_attention(q, k, v, **kw),
-                                             3, 3),
-                         library_ms=_graph_ms(lib),
-                         library_eager_ms=_median_ms(lib)), flops, nbytes)
+        sets = _copies(torch, dev, nbytes, _bound(flops, nbytes)[1], (q, k, v))
+        calls = [lambda t=t: flash_attention(*t, **kw) for t in sets]
+        lib = [(lambda t=t: F.scaled_dot_product_attention(*t, is_causal=True,
+                                                           enable_gqa=True))
+               if dense else
+               (lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask,
+                                                           enable_gqa=True))
+               for t in sets]
+        row = _timed(dict(max_abs_err=err, tol=TOL, rel_err=rel, rel_tol=REL_TOL,
+                          fault_rel_err=fault, bit_equal_repeat=True,
+                          copies=len(sets), **_kernel_times(calls),
+                          plain_ms=_median_ms(lambda: torch_attention(q, k, v, **kw),
+                                              3, 3),
+                          library_ms=_median_ms(lib), library_graph_ms=_graph_ms(lib)),
+                     flops, nbytes)
+        del sets, calls, lib
         cases.append(dict(case=name, pairs=pairs, **row))
         rows.setdefault("flash_attention", row)
     # flash decode: 8 slots with ragged cache lengths, with and without
@@ -243,31 +324,31 @@ def phase_kernels(torch, dev):
         flops = 4 * H * D * read
         n_split, chunk = split_plan(B, KV, S, torch.cuda.get_device_properties(
             dev).multi_processor_count)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
-                                                  enable_gqa=True)
-        row = _timed(dict(max_abs_err=err, tol=TOL,
-                         ms=_graph_ms(lambda: flash_decode(q, k, v, cl,
-                                                           sliding_window=win)),
-                         eager_ms=_median_ms(lambda: flash_decode(q, k, v, cl,
-                                                                  sliding_window=win)),
-                         plain_ms=_median_ms(lambda: torch_decode(
-                             q, k, v, cl, sliding_window=win)),
-                         library_ms=_graph_ms(sdpa),
-                         library_eager_ms=_median_ms(sdpa)), flops, nbytes)
+        sets = _copies(torch, dev, nbytes, _bound(flops, nbytes)[1], (q, k, v))
+        calls = [lambda t=t: flash_decode(*t, cl, sliding_window=win) for t in sets]
+        lib = [lambda t=t: F.scaled_dot_product_attention(
+            t[0][:, :, None], t[1], t[2], attn_mask=mask, enable_gqa=True)
+            for t in sets]
+        row = _timed(dict(max_abs_err=err, tol=TOL, copies=len(sets),
+                          **_kernel_times(calls),
+                          plain_ms=_median_ms(lambda: torch_decode(
+                              q, k, v, cl, sliding_window=win)),
+                          library_ms=_median_ms(lib), library_graph_ms=_graph_ms(lib)),
+                     flops, nbytes)
+        del sets, calls, lib
         cases.append(dict(case=name, tokens_read=read, n_split=n_split,
                           split_keys=chunk, blocks=KV * B * n_split, **row))
         rows.setdefault("flash_decode", row)
-    edges = _edge_cases(torch, dev, rn, check)
+    edges = _edge_cases(torch, dev, rn, check, check_rel)
     _ssd_cases(torch, dev, g, check, cases, rows)
     _say("kernels", cases=cases, edge_cases=edges)
     return rows
 
 
-def _edge_cases(torch, dev, rn, check):
+def _edge_cases(torch, dev, rn, check, check_rel):
     """B1 and B2 in bf16 at the edges of their tiling and splits, each
-    against its plain version (2e-2), untimed: B1 with ragged Sq/Sk, a
+    against its plain version (2e-2, and B1 to REL_TOL), untimed: B1 with
+    ragged Sq/Sk, a
     q_offset with Sq < Sk, a window across tile edges, ragged kv_len and
     rows with no visible key (output 0, LSE -inf where the plain version
     has it), at D 64/80/128; B2 with cache_len 0, 1, under one split, on a
@@ -287,14 +368,15 @@ def _edge_cases(torch, dev, rn, check):
         kw = dict(causal=causal, sliding_window=win, q_offset=qo, kv_len=kv_len,
                   return_lse=True)
         got, lse = flash_attention(q, k, v, **kw)
-        want, want_lse = torch_attention(q, k, v, **kw)
+        want, want_lse = torch_attention(q.float(), k.float(), v.float(), **kw)
         empty = torch.isneginf(want_lse)
         if not (torch.equal(torch.isneginf(lse), empty)
                 and bool((got[empty] == 0).all())):
             raise AssertionError(f"{name}: empty rows are not 0 with LSE -inf")
-        err = max(check(name, got, want),
+        err = max(check(name, got, want.to(q.dtype)),
                   check(name + " lse", lse[~empty], want_lse[~empty]))
-        out.append(dict(case=name, empty_rows=int(empty.sum()), max_abs_err=err))
+        out.append(dict(case=name, empty_rows=int(empty.sum()), max_abs_err=err,
+                        rel_err=check_rel(name, got, want)))
     B, KV, S = 8, 8, 2048
     n_split, chunk = split_plan(B, KV, S, torch.cuda.get_device_properties(
         dev).multi_processor_count)
@@ -347,12 +429,19 @@ def _ssd_cases(torch, dev, g, check, cases, rows):
                  + 4 * b * nh * s * hd * ns)
         nbytes = (2 * (2 * b * s * nh * hd + 2 * b * s * ns) + 4 * b * s * nh
                   + 4 * 2 * nh + 4 * b * nh * hd * ns * (2 if init else 1))
-        row = _timed(dict(max_abs_err=err, tol=TOL,
-                          ms=_graph_ms(lambda: ssd_scan(x, dt, A, B, C, D, **kw)),
-                          eager_ms=_median_ms(lambda: ssd_scan(x, dt, A, B, C, D, **kw)),
+        def call(xbc, dt, h0=None):
+            x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
+            return ssd_scan(x, dt, A, xbc[..., nh * hd:nh * hd + ns],
+                            xbc[..., nh * hd + ns:], D, **dict(kw, init_state=h0))
+        sets = _copies(torch, dev, nbytes, _bound(flops, nbytes)[1],
+                       (xbc, dt) + ((h0,) if init else ()))
+        calls = [lambda t=t: call(*t) for t in sets]
+        row = _timed(dict(max_abs_err=err, tol=TOL, copies=len(sets),
+                          **_kernel_times(calls),
                           plain_ms=_median_ms(lambda: torch_ssd_scan(x, dt, A, B, C, D,
                                                                      **kw), 3, 3),
                           library_ms=None), flops, nbytes)
+        del sets, calls
         cases.append(dict(case=name, chunk=chunk, flops=flops, bytes=nbytes, **row))
         rows.setdefault("ssd_scan", row)
 

@@ -11,8 +11,8 @@
 // 25 MB, i.e. ~770 FLOP/byte, well above the card's ~295 FLOP/byte ridge,
 // so the least time is 19.3e9 / 989e12 = ~20 us.
 //
-// Two kernels, chosen by the caller (`route`) by dtype and head dim, never
-// on failure:
+// Two kernels, chosen in fa_forward by dtype and head dim, never on
+// failure:
 //
 // tc::fa_tc_kernel — bf16 at D 64, 80 and 128 (every main path).  The
 // products run on the tensor cores with wgmma, bf16 in and f32 accumulators.
@@ -273,22 +273,27 @@ template <typename T, int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   constexpr int LD = D + 1;
   const size_t smem = sizeof(float) * ((BQ + 2 * BK) * LD + BQ * (BK + 1));
-  cudaError_t e = cudaFuncSetAttribute(fa_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
+  static bool smem_set = false;   // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
   fa_kernel<T, D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
+// float32 at every head dim; bf16 only at D 32 (D 64/80/128 go to tc)
+cudaError_t dispatch(const Params& p, int B, int D, int dtype, cudaStream_t stream) {
+  if (dtype == 1) return D == 32 ? launch<__nv_bfloat16, 32>(p, B, stream) : cudaErrorInvalidValue;
+  if (dtype != 0) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 80: return launch<T, 80>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 32: return launch<float, 32>(p, B, stream);
+    case 64: return launch<float, 64>(p, B, stream);
+    case 80: return launch<float, 80>(p, B, stream);
+    case 128: return launch<float, 128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -300,13 +305,8 @@ cudaError_t dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
 namespace tc {
 
 constexpr int BQ = 128;               // query rows per block
-// key rows per K/V tile, and K/V tiles in the shared-memory ring (both
-// overridable with -D for a sweep on the card)
-#ifndef FA_BK
-#define FA_BK 128
-#endif
-constexpr int BK = FA_BK;
-constexpr int STAGES = BK >= 128 ? 3 : 4;
+constexpr int BK = 128;               // key rows per K/V tile
+constexpr int STAGES = 3;             // K/V tiles in the shared-memory ring
 constexpr int NCW = 2;                // consumer warpgroups, 64 query rows each
 constexpr int NT = (NCW + 1) * 128;   // + one producer warpgroup
 // registers per thread after setmaxnreg: the producer gives up what the
@@ -316,10 +316,7 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 // The two consumer warpgroups take turns to issue their products (named
 // barriers 1 and 2), so one's softmax runs while the other's products hold
-// the tensor cores; -DFA_PINGPONG=0 lets them race instead.
-#ifndef FA_PINGPONG
-#define FA_PINGPONG 1
-#endif
+// the tensor cores.
 constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
@@ -739,11 +736,9 @@ __global__ void __launch_bounds__(NT, 1) fa_tc_kernel(const __grid_constant__ Pa
   const float scale_log2 = p.scale_log2;
   // turns: warpgroup wg issues after the other's last issue (wg 0 first);
   // wg 1 skips its last hand-over, which no one would wait for
-  auto turn_begin = [&]() {
-    if (FA_PINGPONG) named_sync(1 + wg);
-  };
+  auto turn_begin = [&]() { named_sync(1 + wg); };
   auto turn_end = [&](bool last) {
-    if (FA_PINGPONG && !(last && wg == 1)) named_arrive(1 + (wg ^ 1));
+    if (!(last && wg == 1)) named_arrive(1 + (wg ^ 1));
   };
   auto edge = [&](int k0) {
     return k0 + BK > kv_len || (causal && k0 + BK - 1 > wpos_lo) ||
@@ -762,7 +757,7 @@ __global__ void __launch_bounds__(NT, 1) fa_tc_kernel(const __grid_constant__ Pa
     float sc[BK / 2], corr[2];
     uint32_t pa[BK / 16][4];
     int k0 = t_first * BK;
-    if (FA_PINGPONG && wg == 1) named_arrive(1);
+    if (wg == 1) named_arrive(1);
     mbar_wait(qbar, 0);
     mbar_wait(full0, 0);
     __syncwarp();
@@ -889,9 +884,13 @@ template <int D>
 cudaError_t launch(Params& p, int B, cudaStream_t stream) {
   const size_t smem =
       1024 + (BQ + 2 * STAGES * BK) * Cols<D>::ROW_BYTES + 8 * (2 * STAGES + 1);
-  cudaError_t e = cudaFuncSetAttribute(fa_tc_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+  static bool smem_set = false;   // once per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fa_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
   const dim3 grid(p.H, (p.Sq + BQ - 1) / BQ, B);
   fa_tc_kernel<D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
@@ -901,27 +900,25 @@ cudaError_t launch(Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// route: 0 = simt::fa_kernel (float32, or bf16 at D 32), 1 = tc::fa_tc_kernel
-// (bf16 at D 64, 80, 128).  dtype: 0 = float32, 1 = bfloat16.  Strides are in
-// elements; the last dimension of q, k and v is contiguous.  o is a
-// contiguous (B, H, Sq, D) tensor of q's dtype.  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for an unsupported route, dtype or
-// head dim, or a tensor map cuTensorMapEncodeTiled refuses).
+// dtype: 0 = float32, 1 = bfloat16.  The kernel follows from dtype and head
+// dim: bf16 at D 64, 80 and 128 runs tc::fa_tc_kernel, float32 (D 32, 64,
+// 80, 128) and bf16 at D 32 simt::fa_kernel.  Strides are in elements; the
+// last dimension of q, k and v is contiguous.  o is a contiguous (B, H, Sq,
+// D) tensor of q's dtype.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported dtype or head dim, or a tensor
+// map cuTensorMapEncodeTiled refuses).
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           float* lse, const int* kv_len, int B, int H, int KV,
                           int Sq, int Sk, int D, long long sqb, long long sqh,
                           long long sqs, long long skb, long long skh, long long sks,
                           long long svb, long long svh, long long svs, int causal,
-                          int window, int q_offset, float scale, int dtype, int route,
-                          void* stream) {
+                          int window, int q_offset, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 0) {
+  if (dtype != 1 || (D != 64 && D != 80 && D != 128)) {
     simt::Params p{q, k, v, o, lse, kv_len, H, KV, Sq, Sk, sqb, sqh, sqs, skb, skh, sks,
                    svb, svh, svs, causal, window, q_offset, scale};
-    return (int)(dtype == 1 ? simt::dispatch_d<__nv_bfloat16>(p, B, D, s)
-                            : simt::dispatch_d<float>(p, B, D, s));
+    return (int)simt::dispatch(p, B, D, dtype, s);
   }
-  if (route != 1 || dtype != 1 || (D != 64 && D != 80 && D != 128)) return (int)cudaErrorInvalidValue;
   tc::Params p;
   if (!tc::make_map(&p.tq, q, D, Sq, H, B, sqb, sqh, sqs, tc::BQ, 64) ||
       !tc::make_map(&p.tk, k, D, Sk, KV, B, skb, skh, sks, tc::BK, 64) ||

@@ -28,7 +28,7 @@
 // Inside a block a key row of D elements is read by D/8 lanes with one
 // 16-byte load each (a warp streams 32/(D/8) rows per load instruction,
 // fully coalesced), and each row group takes U consecutive rows per step.
-// Rows travel by cp.async into a ring of FD_STAGES steps in shared memory
+// Rows travel by cp.async into a ring of STAGES steps in shared memory
 // (each thread into its own slots), so three steps of loads are in flight
 // during a step's dot products and shuffles without holding registers: a
 // block's 8 steps of 32 rows would otherwise be 8 memory round trips one
@@ -49,19 +49,10 @@
 
 namespace {
 
-// tuning knobs, overridable with -D for a sweep on the card
-#ifndef FD_WARPS
-#define FD_WARPS 4
-#endif
-#ifndef FD_ROWS
-#define FD_ROWS 4
-#endif
-#ifndef FD_STAGES
-#define FD_STAGES 4
-#endif
-
-constexpr int NW = FD_WARPS;   // warps per block
+constexpr int NW = 4;          // warps per block
 constexpr int NT = NW * 32;
+constexpr int ROWS = 4;        // rows per row group per step (half at n_rep > 4)
+constexpr int STAGES = 4;      // steps in the cp.async ring (half for f32 rows)
 
 struct Params {
   const void* q;        // (B, H, D) contiguous
@@ -138,7 +129,7 @@ __host__ __device__ constexpr int pow2ceil(int v) {
 // steps of rows in the shared-memory ring: f32 rows take twice the bytes
 template <typename T>
 __host__ __device__ constexpr int stages() {
-  return sizeof(T) == 2 ? FD_STAGES : (FD_STAGES + 1) / 2;
+  return sizeof(T) == 2 ? STAGES : (STAGES + 1) / 2;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -166,7 +157,7 @@ __global__ void __launch_bounds__(NT) fd_split_kernel(const Params p) {
   constexpr int LPR = pow2ceil(D / 8);  // lanes per key row (a power of two)
   constexpr int RPW = 32 / LPR;         // row groups per warp
   constexpr int G = NW * RPW;           // row groups per block
-  constexpr int U = NREP <= 4 ? FD_ROWS : (FD_ROWS + 1) / 2;  // rows per group per step
+  constexpr int U = NREP <= 4 ? ROWS : (ROWS + 1) / 2;  // rows per group per step
   __shared__ float s_m[NW][NREP];
   __shared__ float s_l[NW][NREP];
   __shared__ float s_acc[NW][NREP][D];
@@ -369,7 +360,7 @@ __global__ void fd_combine_kernel(const float* __restrict__ part_acc,
 
 template <typename T, int D, int NREP>
 cudaError_t launch(const Params& p, int B, void* o, cudaStream_t stream) {
-  constexpr int U = NREP <= 4 ? FD_ROWS : (FD_ROWS + 1) / 2;
+  constexpr int U = NREP <= 4 ? ROWS : (ROWS + 1) / 2;
   constexpr int smem = stages<T>() * 2 * U * NT * 8 * (int)sizeof(T);
   static bool smem_set = false;   // once per instantiation
   if (!smem_set) {

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
@@ -87,6 +89,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _libs[name] = lib
     return lib
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a launcher's
+    ``stream`` argument (the raw query: no ``torch.cuda.Stream`` object is
+    built on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index or 0)
 
 
 def check(err: int, what: str) -> None:

@@ -2,10 +2,11 @@
 replacing the Pallas kernel B1) and its plain PyTorch version.
 
 `flash_attention` launches a kernel for CUDA tensors and runs the plain
-version `torch_attention` only for tensors on the CPU.  Of the two kernels,
-`route` picks by dtype and head dim: bf16 at D 64, 80 and 128 goes to the
-tensor-core kernel (wgmma + TMA), float32 and bf16 D 32 to the CUDA-core
-one.  `torch_attention` is the twin of the reference's
+version `torch_attention` only for tensors on the CPU.  The launcher picks
+one of two kernels by dtype and head dim: bf16 at D 64, 80 and 128 goes to
+the tensor-core kernel (wgmma + TMA), float32 and bf16 D 32 to the
+CUDA-core one (f32 on tensor cores would run as TF32 and miss the 2e-5 the
+f32 path is held to).  `torch_attention` is the twin of the reference's
 ``ops.xla_attention``: chunked online softmax with true -inf masking, so a
 row with no visible key gives 0 and LSE -inf.
 """
@@ -21,16 +22,6 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128)
-_TC_HEAD_DIMS = (64, 80, 128)
-ROUTES = ("simt", "tc")
-
-
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel takes these inputs: "tc" (tensor cores: wgmma on tiles
-    loaded by TMA) for bf16 at D 64/80/128, else "simt" (f32 FMAs on CUDA
-    cores).  f32 stays off the tensor cores, where it would run as TF32
-    and miss the 2e-5 the f32 path is held to."""
-    return "tc" if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS else "simt"
 
 
 def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,7 +82,7 @@ def _fa_forward():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -142,10 +133,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_len is not None:
         if kv_len.shape != (b,) or kv_len.device != q.device:
             raise ValueError("flash_attention: kv_len must be (B,) on q's device")
-        kv_len = kv_len.to(torch.int32).contiguous()
-    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+        if kv_len.dtype != torch.int32 or not kv_len.is_contiguous():
+            kv_len = kv_len.to(torch.int32).contiguous()
+    out = q.new_empty((b, h, sq, d))
+    lse = q.new_empty((b, h, sq), dtype=torch.float32) if return_lse else None
     if sq == 0 or sk == 0:                 # nothing to launch: no key is visible
         out.zero_()
         if lse is not None:
@@ -158,8 +149,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              int(causal), int(sliding_window), int(q_offset),
              float(scale if scale is not None else d ** -0.5),
-             _DTYPES[q.dtype], ROUTES.index(route(q.dtype, d)),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _DTYPES[q.dtype], _build.raw_stream(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if return_lse else out

@@ -47,6 +47,13 @@ def _n_sms(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _plan(b: int, kvh: int, s: int, index: int) -> Tuple[int, int]:
+    """`split_plan` on card `index`, kept per shape: a decode step asks for
+    the same few shapes on every layer."""
+    return split_plan(b, kvh, s, _n_sms(index))
+
+
+@functools.lru_cache(maxsize=None)
 def _fd_forward():
     fn = _build.load("flash_decode").fd_forward
     fn.restype = ctypes.c_int
@@ -134,27 +141,29 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"flash_decode: {name} must be contiguous")
     for name, t in operands:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"flash_decode: {name} is on {t.device}, not CUDA")
-        if t.data_ptr() % 16:
+    ptrs = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    for (name, _), ptr in zip(operands, ptrs):
+        if ptr % 16:
             raise ValueError(f"flash_decode: {name} must be 16-byte aligned")
-    if cache_len.shape != (b,) or cache_len.device != q.device:
+    dev = q.device
+    if cache_len.shape != (b,) or cache_len.device != dev:
         raise ValueError("flash_decode: cache_len must be (B,) on q's device")
-    cache_len = cache_len.to(torch.int32).contiguous()
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    if cache_len.dtype != torch.int32 or not cache_len.is_contiguous():
+        cache_len = cache_len.to(torch.int32).contiguous()
+    out = torch.empty_like(q)             # (B, H, D), contiguous as q is
     if b == 0 or s == 0:                  # nothing to launch: no key is cached
         return out.zero_()
-    n_split, chunk = split_plan(b, kvh, s, _n_sms(q.device.index or 0))
+    n_split, chunk = _plan(b, kvh, s, dev.index or 0)
     # f32 partials of every (batch, head, split): acc (.., D), then (m, l)
-    part = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    part = q.new_empty(b * h * n_split * (d + 2), dtype=torch.float32)
     part_acc = part.data_ptr()
-    err = _fd_forward()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    err = _fd_forward()(*ptrs, out.data_ptr(),
                         cache_len.data_ptr(), part_acc,
                         part_acc + 4 * b * h * n_split * d,
                         b, h, kvh, s, d, int(sliding_window), n_split, chunk,
-                        float(d ** -0.5), _DTYPES[q.dtype],
-                        torch.cuda.current_stream(q.device).cuda_stream)
+                        float(d ** -0.5), _DTYPES[q.dtype], _build.raw_stream(dev))
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
     return out

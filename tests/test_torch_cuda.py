@@ -6,7 +6,11 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: 2e-5 in f32 (sums in another order), 2e-2 in bf16 (one bf16
-rounding of the output plus reordered f32 sums).
+rounding of the output plus reordered f32 sums).  B1 is also held to a
+relative norm per (batch, head), ||got - want|| / ||want|| against the
+plain version in f32: 2e-5 in f32 and 5e-3 in bf16, where the bf16
+roundings of P and of the output read ~2e-3 and a dropped 128-key tile
+reads 2e-2 or more.
 """
 import pytest
 import torch
@@ -89,18 +93,29 @@ B1_EDGE_CASES = [
 ]
 
 
+def _rel_err(got, want):
+    """Largest ||got - want|| / ||want|| over the (batch, head) slices
+    where `want` (f32) is not all zero."""
+    diff = (got.float() - want).flatten(2).norm(dim=-1)
+    ref = want.flatten(2).norm(dim=-1)
+    keep = ref > 0
+    return (diff[keep] / ref[keep]).max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("n_rep", [1, 4])
 def test_attention_edges_match_plain(cuda, dtype, tol, d, n_rep):
-    """B1 on both routes (bf16 D 64/80/128: tensor cores; f32: CUDA
+    """B1 on both kernels (bf16 D 64/80/128: tensor cores; f32: CUDA
     cores) against `torch_attention`: ragged Sq/Sk, q_offset with Sq < Sk,
     windows across tile edges, ragged kv_len, rows with no visible key
     (output 0 and LSE -inf where the plain version has them), and a
-    bit-equal repeat of the same call.  q is a transposed (B, S, H, D)
-    view, as `attention_block` passes it."""
+    bit-equal repeat of the same call; elementwise and in relative norm
+    against the plain version in f32 on the same inputs.  q is a
+    transposed (B, S, H, D) view, as `attention_block` passes it."""
+    rel_tol = 5e-3 if dtype == torch.bfloat16 else 2e-5
     g = torch.Generator(device=cuda).manual_seed(d + n_rep)
     kvh = 2
     h = kvh * n_rep
@@ -113,8 +128,10 @@ def test_attention_edges_match_plain(cuda, dtype, tol, d, n_rep):
         kw = dict(causal=causal, sliding_window=win, q_offset=qo, kv_len=kv_len,
                   return_lse=True)
         out, lse = flash_attention(q, k, v, **kw)
-        want, want_lse = torch_attention(q, k, v, **kw)
+        want32, want_lse = torch_attention(q.float(), k.float(), v.float(), **kw)
+        want = want32.to(dtype)              # = torch_attention(q, k, v)
         torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+        assert _rel_err(out, want32) < rel_tol
         empty = torch.isneginf(want_lse)
         assert torch.equal(torch.isneginf(lse), empty)
         assert (out.float()[empty] == 0).all()

@@ -31,8 +31,7 @@ COPIED = ["core/request.py", "core/simulator.py", "core/backend.py",
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "kernel_variants.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -121,11 +120,3 @@ def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):
                              text=True, cwd=script.parent, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
-
-
-def test_kernel_variants_refuses_without_cuda(no_cuda):
-    """The variant timer needs the card too: it exits non-zero without one."""
-    out = subprocess.run([sys.executable, str(ROOT / "kernel_variants.py"), "decode"],
-                         capture_output=True, text=True, cwd=ROOT, timeout=120)
-    assert out.returncode != 0
-    assert "decode" not in out.stdout

@@ -19,8 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.flash_decode import flash_decode as j_flash_decode
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attention import (flash_attention, route,
-                                                 torch_attention)
+from repro_torch.kernels.flash_attention import flash_attention, torch_attention
 from repro_torch.kernels.flash_decode import (flash_decode, split_decode,
                                               split_plan, torch_decode)
 
@@ -218,19 +217,14 @@ def test_split_decode_empty_sequence_gives_zero():
     (1, 8, 64, 132, (1, 64)),
     (4, 8, 300, 132, (5, 64)),
     (64, 32, 4096, 132, (1, 4096)),    # a grid that fills the card unsplit
+    (1, 8, 2048, 132, (32, 64)),       # one sequence: 256 blocks of 64 keys
+    (4, 32, 2048, 132, (5, 448)),      # zamba2's block at batch 4: 640 blocks
+    (8, 8, 256, 132, (4, 64)),         # a short cache: splits of one 64-key step
 ])
 def test_split_plan(b, kvh, s, sms, want):
     n_split, chunk = split_plan(b, kvh, s, sms)
     assert (n_split, chunk) == want
     assert chunk % 64 == 0 and n_split * chunk >= s > (n_split - 1) * chunk
-
-
-def test_attention_route_by_dtype_and_head_dim():
-    """bf16 at D 64/80/128 takes the tensor-core kernel; float32 (held to
-    2e-5, which TF32 would miss) and bf16 D 32 the CUDA-core one."""
-    assert [route(torch.bfloat16, d) for d in (32, 64, 80, 128)] == \
-        ["simt", "tc", "tc", "tc"]
-    assert {route(torch.float32, d) for d in (32, 64, 80, 128)} == {"simt"}
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -241,11 +235,13 @@ def _meta(*shape, dtype=torch.bfloat16):
     ("dtype", TypeError), ("k_dtype", TypeError), ("head_dim", ValueError),
     ("gqa", ValueError), ("last_dim_stride", ValueError),
     ("row_stride", ValueError), ("offset", ValueError), ("device", ValueError),
+    ("v_shape", ValueError), ("batch", ValueError),
 ])
 def test_attention_wrapper_refuses(case, exc):
     """What the kernels cannot take is refused before any build or launch
     (meta tensors: never a CPU fallback, never a launch)."""
     q, k = _meta(1, 4, 8, 64), _meta(1, 2, 8, 64)
+    v = k
     if case == "dtype":
         q, k = _meta(1, 4, 8, 64, dtype=torch.float16), _meta(1, 2, 8, 64, dtype=torch.float16)
     elif case == "k_dtype":
@@ -260,18 +256,24 @@ def test_attention_wrapper_refuses(case, exc):
         q = _meta(1, 4, 8, 68)[..., :64]
     elif case == "offset":                        # base 2 bytes past 16-byte alignment
         q = _meta(4 * 8 * 64 + 1)[1:].view(1, 4, 8, 64)
+    elif case == "v_shape":
+        v = _meta(1, 2, 9, 64)
+    elif case == "batch":
+        k = v = _meta(2, 2, 8, 64)
     before = flash_attention.launches
     with pytest.raises(exc, match="flash_attention"):
-        flash_attention(q, k, k)
+        flash_attention(q, k, v)
     assert flash_attention.launches == before
 
 
 @pytest.mark.parametrize("case,exc", [
     ("dtype", TypeError), ("k_dtype", TypeError), ("head_dim", ValueError),
     ("n_rep", ValueError), ("contiguous", ValueError), ("device", ValueError),
+    ("gqa", ValueError), ("v_shape", ValueError),
 ])
 def test_decode_wrapper_refuses(case, exc):
     q, k = _meta(2, 8, 64), _meta(2, 2, 16, 64)
+    v = k
     if case == "dtype":
         q, k = _meta(2, 8, 64, dtype=torch.float16), _meta(2, 2, 16, 64, dtype=torch.float16)
     elif case == "k_dtype":
@@ -282,7 +284,11 @@ def test_decode_wrapper_refuses(case, exc):
         q = _meta(2, 6, 64)
     elif case == "contiguous":
         k = _meta(2, 16, 2, 64).transpose(1, 2)
+    elif case == "gqa":                           # 5 query heads on 2 KV heads
+        q = _meta(2, 5, 64)
+    elif case == "v_shape":
+        v = _meta(2, 2, 17, 64)
     before = flash_decode.launches
     with pytest.raises(exc, match="flash_decode"):
-        flash_decode(q, k, k, torch.empty((2,), dtype=torch.int32, device="meta"))
+        flash_decode(q, k, v, torch.empty((2,), dtype=torch.int32, device="meta"))
     assert flash_decode.launches == before
