@@ -9,8 +9,9 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
 
 1. build     — compile the hand CUDA kernels from ``src/repro_torch/csrc``
                (one nvcc per source, in parallel), report the card, ptxas's
-               registers and spills, and B1's wgmma (HGMMA) and TMA
-               (UTMALDG) instruction counts from cuobjdump (none: fail);
+               registers and spills, B1's wgmma (HGMMA) and TMA
+               (UTMALDG) instruction counts and the tensor-core (HMMA)
+               count of every bf16 B3 kernel, from cuobjdump (none: fail);
 2. kernels   — each kernel against its plain PyTorch version in bf16 at the
                main paths' shapes (atol = rtol = 2e-2; B1 also to 5e-3 in
                ||got - want|| / ||want|| per (batch, head) against the plain
@@ -27,9 +28,15 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                copies of its inputs, so what a call reads has left the L2
                cache.  Each case has its bound, ``tflops`` and
                ``share_of_bound`` (bound / ms).  Two identical B1 calls must
-               be bit-equal, and untimed edge cases hold B1 and B2 to their
-               plain versions at the edges of their tiles and splits
-               (``edge_cases``);
+               be bit-equal.  B3 in bf16 is held the same way on y and the
+               state (``kernels/checks.py``: SSD_REL_TOL, against a dropped
+               64-token u-tile), at 4 x 2048 for both models, a ragged
+               length and one 16384-token prompt alone.  Untimed edge cases
+               hold B1, B2 and B3 to their plain versions at the edges of
+               their tiles, splits and chunks, B3 also at a slow decay that
+               carries the state across 17 chunks (a cut state passing and
+               a dropped entering state must read above the limit), and
+               B3's f32 kernel to 2e-5 (``edge_cases``);
 3. engine    — full-width mistral_7b (random bf16 weights from a seed) on one
                ReplicaEngine: a preempted 1536-token prefill resumes bit for
                bit, and a prefix-cache hit runs the suffix prefill at
@@ -44,7 +51,8 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                each through ``launch/quickstart.py``: prefill of 4 x 2048
                tokens, then 32 greedy decode steps, with launches read
                around the prefill and around the decode steps (the Mamba2
-               main paths) and checked exactly;
+               main paths) and checked exactly, and a profile of 4 more
+               decode steps and of one more prefill;
 8. invariant — both models in f32 at full width and 12 layers: after
                prefill, decode_step's logits equal the last logits of a
                forward over the extended sequence (the chunked scan on the
@@ -159,16 +167,6 @@ def _copies(torch, dev, nbytes, bound_by, tensors):
     return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
 
 
-def _rel_err(got, want):
-    """Largest ||got - want|| / ||want|| over the (batch, head) slices of
-    (B, H, S, D) outputs, `want` in f32; slices where `want` is all zero
-    (no visible key in any row) are left out."""
-    diff = (got.float() - want).flatten(2).norm(dim=-1)
-    ref = want.flatten(2).norm(dim=-1)
-    keep = ref > 0
-    return (diff[keep] / ref[keep]).max().item() if bool(keep.any()) else 0.0
-
-
 def _visible_pairs(sq, kv_len, causal, window, q_offset):
     """(query, key) pairs attention must compute for these inputs, per
     batch element: the work the data needs, not the padded maximum."""
@@ -200,27 +198,49 @@ def _timed(row, flops, nbytes):
     return row
 
 
-def _sass_counts(lib_path):
-    """Tensor-core (HGMMA, i.e. wgmma) and TMA (UTMALDG) instructions in each
-    tensor-core kernel of a built library, read back with cuobjdump."""
+def _sass_functions(lib_path):
+    """{mangled function name: its SASS} of a built library, from cuobjdump."""
     from repro_torch.kernels import _build
     exe = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(exe), "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+    return {chunk.split("\n", 1)[0].strip(): chunk
+            for chunk in sass.split("Function : ")[1:]}
+
+
+def _sass_counts(lib_path):
+    """Tensor-core (HGMMA, i.e. wgmma) and TMA (UTMALDG) instructions in each
+    tensor-core kernel of B1's library."""
     counts = {}
-    for chunk in sass.split("Function : ")[1:]:
-        m = re.search(r"fa_tc_kernelILi(\d+)E", chunk.split("\n", 1)[0])
+    for fn, body in _sass_functions(lib_path).items():
+        m = re.search(r"fa_tc_kernelILi(\d+)E", fn)
         if m:
             counts[f"fa_tc_kernel<{m.group(1)}>"] = {
-                op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("HGMMA", "UTMALDG")}
+                op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG")}
     if len(counts) != 3 or not all(min(c.values()) > 0 for c in counts.values()):
         raise AssertionError(f"B1's tensor-core kernels lack wgmma or TMA: {counts}")
     return counts
 
 
+def _ssd_sass_counts(lib_path):
+    """Tensor-core instructions (HMMA, i.e. mma.sync) in every instantiation
+    of B3's three bf16 product kernels: (instantiations, least, most)."""
+    counts = {}
+    for fn, body in _sass_functions(lib_path).items():
+        for kernel in ("cb_kernel", "state_kernel", "out_kernel"):
+            if kernel in fn:
+                counts.setdefault(kernel, []).append(len(re.findall(r"\bHMMA\b", body)))
+    if set(counts) != {"cb_kernel", "state_kernel", "out_kernel"} \
+            or min(min(c) for c in counts.values()) == 0:
+        raise AssertionError(f"B3's bf16 kernels lack tensor-core HMMA: {counts}")
+    return {k: dict(instantiations=len(c), hmma_min=min(c), hmma_max=max(c))
+            for k, c in counts.items()}
+
+
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
+    from repro_torch.kernels.checks import rel_err
     from repro_torch.kernels.flash_attention import flash_attention, torch_attention
     from repro_torch.kernels.flash_decode import flash_decode, split_plan, torch_decode
 
@@ -237,7 +257,7 @@ def phase_kernels(torch, dev):
         return err
 
     def check_rel(name, got, want):
-        rel = _rel_err(got, want)
+        rel = rel_err(got, want)
         if not rel < REL_TOL:
             raise AssertionError(f"{name}: ||got - want|| / ||want|| {rel} in a "
                                  f"(batch, head) (limit {REL_TOL})")
@@ -265,7 +285,7 @@ def phase_kernels(torch, dev):
         rel = check_rel(name, got, want)
         # the reading of a fault: the last 128-key tile of each sequence
         # dropped (the plain version with kv_len 128 shorter)
-        fault = _rel_err(torch_attention(q.float(), k.float(), v.float(), **dict(
+        fault = rel_err(torch_attention(q.float(), k.float(), v.float(), **dict(
             kw, kv_len=torch.tensor(kl, dtype=torch.int32, device=dev) - 128)).to(
                 q.dtype), want)
         if not fault > REL_TOL:
@@ -340,7 +360,8 @@ def phase_kernels(torch, dev):
                           split_keys=chunk, blocks=KV * B * n_split, **row))
         rows.setdefault("flash_decode", row)
     edges = _edge_cases(torch, dev, rn, check, check_rel)
-    _ssd_cases(torch, dev, g, check, cases, rows)
+    edges += _ssd_edge_cases(torch, dev, g)
+    _ssd_cases(torch, dev, g, cases, rows)
     _say("kernels", cases=cases, edge_cases=edges)
     return rows
 
@@ -396,31 +417,22 @@ def _edge_cases(torch, dev, rn, check, check_rel):
     return out
 
 
-def _ssd_cases(torch, dev, g, check, cases, rows):
-    """B3 at both models' prefill shapes (4 x 2048; x, B and C strided views
-    of one conv output, as the model passes them), at the models' own chunks
-    and with a ragged length; y and the final state both checked."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.ssd_kernel import ssd_scan, torch_ssd_scan
-    b = 4
-    for name, nh, hd, ns, chunk, s, init in (
-            ("ssd_mamba2_130m_b4_s2048", 24, 64, 128, 256, 2048, True),
-            ("ssd_zamba2_b4_s2048", 80, 64, 64, 64, 2048, False),
-            ("ssd_mamba2_130m_b4_s2000_ragged", 24, 64, 128, 256, 2000, False)):
-        xbc = torch.randn((b, s, nh * hd + 2 * ns), generator=g, device=dev,
-                          dtype=torch.bfloat16)
-        x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
-        B, C = xbc[..., nh * hd:nh * hd + ns], xbc[..., nh * hd + ns:]
-        dt = F.softplus(torch.randn((b, s, nh), generator=g, device=dev) - 3)
-        A = -torch.arange(1, nh + 1, dtype=torch.float32, device=dev)
-        D = torch.ones((nh,), dtype=torch.float32, device=dev)
-        h0 = (torch.randn((b, nh, hd, ns), generator=g, device=dev) * 0.1
-              if init else None)
+def _ssd_cases(torch, dev, g, cases, rows):
+    """B3 at both models' prefill shapes (4 x 2048), at the models' own
+    chunks, with a ragged length, and one 16384-token prompt alone; y and
+    the final state checked as `checks.ssd_check` says, then timed."""
+    from repro_torch.kernels.checks import ssd_check, ssd_inputs
+    from repro_torch.kernels.ssd_kernel import chunk_len, ssd_scan, torch_ssd_scan
+    for name, b, nh, hd, ns, chunk, s, init in (
+            ("ssd_mamba2_130m_b4_s2048", 4, 24, 64, 128, 256, 2048, True),
+            ("ssd_zamba2_b4_s2048", 4, 80, 64, 64, 64, 2048, False),
+            ("ssd_mamba2_130m_b4_s2000_ragged", 4, 24, 64, 128, 256, 2000, False),
+            # one long prompt prefilled alone, the traffic PecSched preempts for
+            ("ssd_mamba2_130m_b1_s16384", 1, 24, 64, 128, 256, 16384, True)):
+        xbc, x, dt, A, B, C, D, h0 = ssd_inputs(b, s, nh, hd, ns, init=init,
+                                                generator=g, device=dev)
         kw = dict(chunk=chunk, init_state=h0, return_state=True)
-        y, h = ssd_scan(x, dt, A, B, C, D, **kw)
-        wy, wh = torch_ssd_scan(x, dt, A, B, C, D, **kw)
-        err = max(check(name + " y", y, wy), check(name + " state", h, wh))
+        checked = ssd_check(name, x, dt, A, B, C, D, chunk=chunk, init_state=h0)
         # work this input needs: C.B^T once per (batch, chunk) pair t >= u,
         # scores.x per head, and C.h and the state update per token
         pairs = sum(n * (n + 1) // 2 for n in
@@ -429,6 +441,7 @@ def _ssd_cases(torch, dev, g, check, cases, rows):
                  + 4 * b * nh * s * hd * ns)
         nbytes = (2 * (2 * b * s * nh * hd + 2 * b * s * ns) + 4 * b * s * nh
                   + 4 * 2 * nh + 4 * b * nh * hd * ns * (2 if init else 1))
+
         def call(xbc, dt, h0=None):
             x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
             return ssd_scan(x, dt, A, xbc[..., nh * hd:nh * hd + ns],
@@ -436,14 +449,51 @@ def _ssd_cases(torch, dev, g, check, cases, rows):
         sets = _copies(torch, dev, nbytes, _bound(flops, nbytes)[1],
                        (xbc, dt) + ((h0,) if init else ()))
         calls = [lambda t=t: call(*t) for t in sets]
-        row = _timed(dict(max_abs_err=err, tol=TOL, copies=len(sets),
+        # device time of each of the call's kernels (the four passes in bf16)
+        passes = _profile_steps(torch, calls[0], 3)["top_kernels_ms_per_iter"]
+        row = _timed(dict(checked, copies=len(sets), passes_ms=passes,
                           **_kernel_times(calls),
                           plain_ms=_median_ms(lambda: torch_ssd_scan(x, dt, A, B, C, D,
                                                                      **kw), 3, 3),
                           library_ms=None), flops, nbytes)
         del sets, calls
-        cases.append(dict(case=name, chunk=chunk, flops=flops, bytes=nbytes, **row))
+        cases.append(dict(case=name, chunk=chunk, kernel_chunk=chunk_len(s, ns),
+                          flops=flops, bytes=nbytes, **row))
         rows.setdefault("ssd_scan", row)
+
+
+def _ssd_edge_cases(torch, dev, g):
+    """B3 untimed on `checks.ssd_edge_cases` (the edges of its 64-token
+    tiles and its chunk, and a slow decay over 17 chunks with the carry
+    faults) at ns 64 and 128, b 1 and 2, as `checks.ssd_check` holds it;
+    and the f32 CUDA-core kernel to 2e-5 (dt in Mamba2's initial range, as
+    tests/test_torch_cuda.py draws it)."""
+    from repro_torch.kernels.checks import ssd_check, ssd_edge_cases, ssd_inputs
+    from repro_torch.kernels.ssd_kernel import chunk_len, ssd_scan, torch_ssd_scan
+    out = []
+    for ns, nh in ((64, 5), (128, 3)):
+        for b in (1, 2):
+            for s, init, slow in ssd_edge_cases(ns, b):
+                name = (f"ssd_{'slow' if slow else 'edges'}_ns{ns}_b{b}_s{s}"
+                        f"{'_init' if init else ''}")
+                _, x, dt, A, B, C, D, h0 = ssd_inputs(b, s, nh, 64, ns, init=init,
+                                                      generator=g, device=dev,
+                                                      slow=slow)
+                out.append(dict(case=name, kernel_chunk=chunk_len(s, ns),
+                                **ssd_check(name, x, dt, A, B, C, D, chunk=64,
+                                            init_state=h0, carry=slow)))
+    _, x, dt, A, B, C, D, h0 = ssd_inputs(2, 300, 3, 64, 128, init=True, generator=g,
+                                          device=dev, dtype=torch.float32,
+                                          dt_shift=4.0)
+    kw = dict(chunk=256, init_state=h0, return_state=True)
+    y, h = ssd_scan(x, dt, A, B, C, D, **kw)
+    wy, wh = torch_ssd_scan(x, dt, A, B, C, D, **kw)
+    err = max((y - wy).abs().max().item(), (h - wh).abs().max().item())
+    if not (torch.allclose(y, wy, atol=2e-5, rtol=2e-5)
+            and torch.allclose(h, wh, atol=2e-5, rtol=2e-5)):
+        raise AssertionError(f"ssd f32: CUDA-core kernel off its plain version by {err}")
+    out.append(dict(case="ssd_f32_b2_s300_ns128", max_abs_err=err, tol=2e-5))
+    return out
 
 
 def phase_engine(torch, dev, cfg, params):
@@ -685,13 +735,17 @@ def phase_mamba(torch, dev, phase, arch):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # where a decode step's time goes: 4 more steps under the profiler
     prof = _profile_steps(torch, lambda: decode_step(cfg, params, cache, toks[-1]), 4)
+    # and a prefill's: one more under the profiler
+    del cache
+    pre_prof = _profile_steps(torch, lambda: quickstart.start(cfg, params, prompt,
+                                                              S + N + 8), 1)
     _say(phase, arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
          dtype=cfg.dtype, weights_gb=weights_gb, batch=B, prompt_len=S,
          prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
          decode_steps=N, decode_ms_per_step=1e3 * decode_s / N,
          decode_tokens_per_s=B * N / decode_s, launches_prefill=pre,
          launches_decode=dec, logits_finite=True, max_memory_allocated_gb=peak_gb,
-         decode_step_profile=prof)
+         decode_step_profile=prof, prefill_profile=pre_prof)
     return {n: pre[n] + dec[n] for n in pre}
 
 
@@ -757,7 +811,8 @@ def main() -> int:
     _say("build", build_s=build_s, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi, ptxas_registers=ptxas,
-         b1_sass=_sass_counts(_build._lib_path("flash_attention")))
+         b1_sass=_sass_counts(_build._lib_path("flash_attention")),
+         b3_bf16_sass=_ssd_sass_counts(_build._lib_path("ssd_scan_tc")))
     print(smi.splitlines()[0], flush=True)
 
     rows = phase_kernels(torch, dev)
@@ -786,7 +841,7 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention.py:85"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                                 "src/repro/kernels/flash_decode.py:72"),
-               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+               "ssd_scan": ("src/repro_torch/csrc/ssd_scan_tc.cu",
                             "src/repro/kernels/ssd_kernel.py:74")}
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -8,8 +8,8 @@
 //         + D x_t
 //   h_out = exp(seg_T) h_in + sum_u exp(seg_T - seg_u) dt_u x_u (x) B_u
 // from an optional entering state, and returns the state after the last
-// token.  x, B and C are f32 or bf16; dt, A, D, the state and every sum are
-// f32.
+// token.  This kernel is the f32 path: x, B, C, y, dt, A, D, the state and
+// every sum are f32.  bf16 goes to the tensor-core kernels of ssd_scan_tc.cu.
 //
 // Bound on an H100 SXM: bytes, at the serving shapes.  The function reads x,
 // dt, B, C (and the entering state) once and writes y and the final state
@@ -43,10 +43,9 @@
 // - Tokens past the sequence end are zeros in shared memory with dt = 0
 //   (decay 1, no contribution), so the final state is the state after the
 //   last real token and no padded copy of any input is made.
-// Tensor cores (mma.sync / wgmma) and one C.B^T per (batch, chunk) shared by
-// all heads are left for a later version.
+// Tensor cores and one C.B^T per (batch, chunk) shared by all heads are the
+// bf16 design of ssd_scan_tc.cu; this kernel keeps f32 to 2e-5.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -57,14 +56,14 @@ constexpr int L = 64;     // the kernel's own chunk: tokens per shared-memory ti
 constexpr int NT = 256;   // threads: 16 (tx) x 16 (ty)
 
 struct Params {
-  const void* x;          // (b, s, nh, hd), strides sxb, sxs, sxh; last dim contiguous
+  const float* x;         // (b, s, nh, hd), strides sxb, sxs, sxh; last dim contiguous
   const float* dt;        // (b, s, nh), strides sdb, sds, sdh
   const float* A;         // (nh,)
-  const void* B;          // (b, s, ns), strides sbb, sbs; last dim contiguous
-  const void* C;          // (b, s, ns), strides scb, scs; last dim contiguous
+  const float* B;         // (b, s, ns), strides sbb, sbs; last dim contiguous
+  const float* C;         // (b, s, ns), strides scb, scs; last dim contiguous
   const float* D;         // (nh,)
   const float* h0;        // (b, nh, hd, ns) contiguous, may be null (zeros)
-  void* y;                // (b, s, nh, hd) contiguous, x's dtype
+  float* y;               // (b, s, nh, hd) contiguous
   float* hT;              // (b, nh, hd, ns) contiguous
   int S, NH, HD;
   long long sxb, sxs, sxh;
@@ -79,26 +78,11 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // rows [t0, t0 + L) of a (S, W) slab with row stride `rs` -> shared memory
 // rows of `ld` floats; rows at or past S are zeros
-template <typename T, int W>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+template <int W>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
                                       long long rs, int t0, int S) {
   constexpr int CH = W / 8;  // 8-element chunks per row
   for (int i = threadIdx.x; i < L * CH; i += NT) {
@@ -115,7 +99,7 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
   }
 }
 
-template <typename T, int NS, int P>
+template <int NS, int P>
 __global__ void __launch_bounds__(NT) ssd_kernel(const Params p) {
   constexpr int LDN = NS + 1;  // B, C and state rows padded: column walks free of bank conflicts
   constexpr int LDL = L + 1;
@@ -139,14 +123,14 @@ __global__ void __launch_bounds__(NT) ssd_kernel(const Params p) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  const T* xg = static_cast<const T*>(p.x) + b * p.sxb + h * p.sxh + p0;
+  const float* xg = p.x + b * p.sxb + h * p.sxh + p0;
   const float* dtg = p.dt + b * p.sdb + h * p.sdh;
-  const T* bg = static_cast<const T*>(p.B) + b * p.sbb;
-  const T* cg = static_cast<const T*>(p.C) + b * p.scb;
+  const float* bg = p.B + b * p.sbb;
+  const float* cg = p.C + b * p.scb;
   const float A = p.A[h];
   const float Dh = p.D[h];
   const long long st0 = (((long long)b * p.NH + h) * p.HD + p0) * NS;
-  T* yg = static_cast<T*>(p.y) + ((long long)b * p.S * p.NH + h) * p.HD + p0;
+  float* yg = p.y + ((long long)b * p.S * p.NH + h) * p.HD + p0;
   const long long ys = (long long)p.NH * p.HD;  // y row stride
 
   for (int i = threadIdx.x; i < P * NS; i += NT)
@@ -154,9 +138,9 @@ __global__ void __launch_bounds__(NT) ssd_kernel(const Params p) {
 
   for (int t0 = 0; t0 < p.S; t0 += L) {
     __syncthreads();  // the previous chunk's readers and state writers are done
-    stage<T, NS>(sB, LDN, bg, p.sbs, t0, p.S);
-    stage<T, NS>(sC, LDN, cg, p.scs, t0, p.S);
-    stage<T, P>(sX, P, xg, p.sxs, t0, p.S);
+    stage<NS>(sB, LDN, bg, p.sbs, t0, p.S);
+    stage<NS>(sC, LDN, cg, p.scs, t0, p.S);
+    stage<P>(sX, P, xg, p.sxs, t0, p.S);
     if (warp == 0) {
       // dt of the chunk (0 past the end) and the inclusive prefix sum of
       // dt*A, two tokens per lane
@@ -251,8 +235,8 @@ __global__ void __launch_bounds__(NT) ssd_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < PJ; ++j) {
           const int c = tx + 16 * j;
-          store1(yg + (long long)(t0 + t) * ys + c,
-                 yi[i][j] + e * yo[i][j] + Dh * sX[t * P + c]);
+          yg[(long long)(t0 + t) * ys + c] =
+              yi[i][j] + e * yo[i][j] + Dh * sX[t * P + c];
         }
       }
     }
@@ -293,61 +277,57 @@ __global__ void __launch_bounds__(NT) ssd_kernel(const Params p) {
     p.hT[st0 + i] = sH[(i / NS) * LDN + i % NS];
 }
 
-template <typename T, int NS, int P>
+template <int NS, int P>
 cudaError_t launch(const Params& p, int Bsz, cudaStream_t stream) {
   constexpr int LDN = NS + 1;
   const size_t smem =
       sizeof(float) * (2 * L * LDN + L * P + L * (L + 1) + P * LDN + 3 * L);
-  cudaError_t e = cudaFuncSetAttribute(ssd_kernel<T, NS, P>,
+  cudaError_t e = cudaFuncSetAttribute(ssd_kernel<NS, P>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.HD / P, p.NH, Bsz);
-  ssd_kernel<T, NS, P><<<grid, NT, smem, stream>>>(p);
+  ssd_kernel<NS, P><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int NS>
+template <int NS>
 cudaError_t dispatch_p(const Params& p, int Bsz, int P, cudaStream_t s) {
   switch (P) {
-    case 16: return launch<T, NS, 16>(p, Bsz, s);
-    case 32: return launch<T, NS, 32>(p, Bsz, s);
-    case 64: return launch<T, NS, 64>(p, Bsz, s);
+    case 16: return launch<NS, 16>(p, Bsz, s);
+    case 32: return launch<NS, 32>(p, Bsz, s);
+    case 64: return launch<NS, 64>(p, Bsz, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 cudaError_t dispatch_ns(const Params& p, int Bsz, int NS, int P, cudaStream_t s) {
   switch (NS) {
-    case 16: return dispatch_p<T, 16>(p, Bsz, P, s);
-    case 32: return dispatch_p<T, 32>(p, Bsz, P, s);
-    case 64: return dispatch_p<T, 64>(p, Bsz, P, s);
-    case 128: return dispatch_p<T, 128>(p, Bsz, P, s);
+    case 16: return dispatch_p<16>(p, Bsz, P, s);
+    case 32: return dispatch_p<32>(p, Bsz, P, s);
+    case 64: return dispatch_p<64>(p, Bsz, P, s);
+    case 128: return dispatch_p<128>(p, Bsz, P, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype (of x, B, C and y): 0 = float32, 1 = bfloat16.  Strides are in
-// elements; the last dimension of x, B and C is contiguous.  dt, A, D, h0
-// and hT are float32; h0 may be null.  y is a contiguous (b, s, nh, hd)
+// Every tensor is float32.  Strides are in elements; the last dimension of
+// x, B and C is contiguous.  h0 may be null.  y is a contiguous (b, s, nh, hd)
 // tensor, hT a contiguous (b, nh, hd, ns) one.  P (state rows per block)
 // divides hd.  Returns cudaGetLastError() after the launch.
-extern "C" int ssd_forward(const void* x, const float* dt, const float* A,
-                           const void* B, const void* C, const float* D,
-                           const float* h0, void* y, float* hT, int Bsz, int S,
+extern "C" int ssd_forward(const float* x, const float* dt, const float* A,
+                           const float* B, const float* C, const float* D,
+                           const float* h0, float* y, float* hT, int Bsz, int S,
                            int NH, int HD, int NS, int P, long long sxb,
                            long long sxs, long long sxh, long long sdb,
                            long long sds, long long sdh, long long sbb,
                            long long sbs, long long scb, long long scs,
-                           int dtype, void* stream) {
+                           void* stream) {
   if (P <= 0 || HD % P != 0) return (int)cudaErrorInvalidValue;
   Params p{x, dt, A, B, C, D, h0, y, hT, S, NH, HD, sxb, sxs, sxh,
            sdb, sds, sdh, sbb, sbs, scb, scs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 1 ? dispatch_ns<__nv_bfloat16>(p, Bsz, NS, P, s)
-                             : dispatch_ns<float>(p, Bsz, NS, P, s);
-  return (int)e;
+  return (int)dispatch_ns(p, Bsz, NS, P, s);
 }

@@ -7,8 +7,13 @@ versions of the same algorithm (chunked against chunked, sequential against
 sequential: f32 sums in another order), 2e-3 across the two algorithms, as
 the reference's own test holds its kernel to its oracle.
 
-The hand CUDA kernel runs only on the card: tests/test_torch_cuda.py holds
-it to `torch_ssd_scan` there.
+`split_ssd`, the bf16 tensor-core kernels' passes in plain f32 at their
+own chunk L, is held to the Pallas kernel and to the oracle at 2e-5, with
+dt in Mamba2's initial range (softplus(N(0, 1) - 4)), where the chunked and
+sequential forms agree that closely.
+
+The hand CUDA kernels run only on the card: tests/test_torch_cuda.py holds
+them to `torch_ssd_scan` there.
 """
 import functools
 
@@ -21,7 +26,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.ssd_kernel import ssd_scan_pallas
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_kernel import ssd_scan, torch_ssd_scan
+from repro_torch.kernels.checks import SSD_REL_TOL, ssd_faults, ssd_inputs, ssd_judge
+from repro_torch.kernels.ssd_kernel import (chunk_len, split_ssd, ssd_scan,
+                                            torch_ssd_scan)
 
 # one intra-op thread: the suite runs several test workers on a few cores,
 # and oversubscribed threads slow these many small CPU ops a hundredfold
@@ -30,6 +37,10 @@ torch.set_num_threads(1)
 SAME = dict(atol=1e-4, rtol=1e-4)
 CROSS = dict(atol=2e-3, rtol=2e-3)
 CASES = [(16, 64), (32, 96), (32, 70), (8, 8)]       # (chunk, seq)
+SPLIT = dict(atol=2e-5, rtol=2e-5)
+# (L, seq, batch, entering state): seq below L, at L, at 2L - 1 and 2L + 1
+SPLIT_CASES = [(L, s, 1 + k % 2, k in (0, 3)) for L in (64, 128, 256)
+               for k, s in enumerate((L // 2, L, 2 * L - 1, 2 * L + 1))]
 
 
 def _inputs(seq, seed, b=2, nh=4, hd=8, ns=16):
@@ -171,3 +182,87 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(kind):
                  a.pop("D"), chunk=64, **a)
     assert ("CUDA device" in str(err.value)) == (kind == "device"), err.value
     assert ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("L,seq,b,init", SPLIT_CASES)
+def test_split_ssd_matches_pallas_and_oracle(L, seq, b, init):
+    """The tensor-core kernels' arithmetic pass by pass (C·Bᵀ once per
+    (batch, chunk), chunk states, state passing in place, output) against
+    the Pallas kernel at chunk L (interpret mode) and the sequential oracle:
+    y and the final state at 2e-5."""
+    rng = np.random.default_rng(L * 10 + seq)
+
+    def t(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+    nh, hd, ns = 4, 8, 16
+    x = t(b, seq, nh, hd)
+    dt = np.logaddexp(t(b, seq, nh) - 4, 0).astype(np.float32)
+    A = -np.exp(t(nh))
+    B, C, D = t(b, seq, ns), t(b, seq, ns), t(nh)
+    h0 = t(b, nh, hd, ns) * 0.1 if init else None
+    args = (x, dt, A, B, C, D)
+    jargs = [jnp.asarray(a) for a in args]
+    jh0 = jnp.asarray(h0) if init else None
+    want = {"pallas": ssd_scan_pallas(*jargs, chunk=L, init_state=jh0,
+                                      return_state=True, interpret=True),
+            "sequential": jref.ssd_reference(*jargs, init_state=jh0,
+                                             return_state=True)}
+    y, h = split_ssd(*map(torch.from_numpy, args), L=L, return_state=True,
+                     init_state=torch.from_numpy(h0) if init else None)
+    for name, (wy, wh) in want.items():
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), err_msg=name, **SPLIT)
+        np.testing.assert_allclose(h.numpy(), np.asarray(wh), err_msg=name, **SPLIT)
+
+
+def test_chunk_len_from_scratch_bytes():
+    """The kernels' own chunk: L >= 2 ns, between one 64-token tile and 256,
+    and no longer than the sequence rounded up to a tile."""
+    assert [chunk_len(2048, ns) for ns in (16, 32, 64, 128)] == [64, 64, 128, 256]
+    assert [chunk_len(s, 128) for s in (0, 1, 64, 65, 200, 16384)] == \
+        [64, 64, 64, 128, 256, 256]
+
+
+@pytest.mark.parametrize("ns,nh,s,init", [(128, 24, 700, True), (64, 16, 700, False)])
+def test_bf16_operand_emulation_reads_inside_the_limit(ns, nh, s, init):
+    """The limit the card holds bf16 B3 to, from a CPU emulation of its bf16
+    operands (`split_ssd(operands=torch.bfloat16)`, y rounded to bf16) at the
+    models' head width: the emulation reads below SSD_REL_TOL against the
+    plain version in f32, on y and the state, and a dropped 64-token u-tile
+    (its B rows zeroed) reads above it (`checks.ssd_judge`)."""
+    g = torch.Generator().manual_seed(ns + s)
+    _, x, dt, A, B, C, D, h0 = ssd_inputs(2, s, nh, 64, ns, init=init,
+                                          generator=g, device="cpu")
+    kw = dict(init_state=h0, return_state=True)
+    wy, wh = torch_ssd_scan(x.float(), dt, A, B.float(), C.float(), D,
+                            chunk=chunk_len(s, ns), **kw)
+    ey, eh = split_ssd(x, dt, A, B, C, D, L=chunk_len(s, ns),
+                       operands=torch.bfloat16, **kw)
+    assert ey.dtype == torch.bfloat16
+    got = ssd_judge("emulation", ey, eh, wy, wh, ssd_faults(
+        x, dt, A, B, C, D, init_state=h0, carry=False))
+    assert set(got) >= {"fault_tile_y", "fault_tile_state"}
+
+
+@pytest.mark.parametrize("ns,nh,b,s", [(64, 5, 1, 17 * 128 + 37),
+                                       (128, 3, 2, 9 * 256 + 5)])
+def test_bf16_emulation_sees_the_carry_faults_at_slow_decay(ns, nh, b, s):
+    """At a slow decay (a chunk keeps 0.2-0.99 of the state) over more than
+    8 chunks with an entering state, the emulation of the bf16 operands
+    still reads below SSD_REL_TOL, and a state passing cut to the previous
+    chunk's own state (h_in[c] = S[c-1]) or a dropped entering state reads
+    above it, on y and on the state: the card's check can see a fault of
+    the state passing.  The cut is also held to the plain version on the
+    first chunk, where it changes nothing."""
+    g = torch.Generator().manual_seed(ns * b)
+    _, x, dt, A, B, C, D, h0 = ssd_inputs(b, s, nh, 64, ns, init=True,
+                                          generator=g, device="cpu", slow=True)
+    L = chunk_len(s, ns)
+    kw = dict(init_state=h0, return_state=True)
+    wy, wh = torch_ssd_scan(x.float(), dt, A, B.float(), C.float(), D,
+                            chunk=L, **kw)
+    ey, eh = split_ssd(x, dt, A, B, C, D, L=L, operands=torch.bfloat16, **kw)
+    faults = ssd_faults(x, dt, A, B, C, D, init_state=h0, carry=True)
+    got = ssd_judge("emulation", ey, eh, wy, wh, faults)
+    assert min(got["fault_carry"] + got["fault_init"]) > 10 * SSD_REL_TOL
+    torch.testing.assert_close(faults["carry"][0][:, :L], wy[:, :L],
+                               atol=2e-5, rtol=2e-5)
