@@ -36,7 +36,10 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                their tiles, splits and chunks, B3 also at a slow decay that
                carries the state across 17 chunks (a cut state passing and
                a dropped entering state must read above the limit), and
-               B3's f32 kernel to 2e-5 (``edge_cases``);
+               B3's f32 kernel to 2e-5, and the encoder-decoder's edges: B1
+               with one query row, causal and across to 1024 frames, B1
+               unmasked over 1024 frames, B2 over a full 1024-key cross
+               cache (``edge_cases``, through ``kernels/checks.py``);
 3. engine    — full-width mistral_7b (random bf16 weights from a seed) on one
                ReplicaEngine: a preempted 1536-token prefill resumes bit for
                bit, and a prefix-cache hit runs the suffix prefill at
@@ -46,20 +49,27 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                count read around this run (the dense main path);
 5. profile   — torch.profiler over decode iterations at 8 slots: wall and
                device-busy time per iteration and the top kernels;
-6. ssm       — full-width mamba2_130m, and
-7. hybrid    — full-width zamba2_2_7b (random bf16 weights from seed 0),
-               each through ``launch/quickstart.py``: prefill of 4 x 2048
-               tokens, then 32 greedy decode steps, with launches read
-               around the prefill and around the decode steps (the Mamba2
-               main paths) and checked exactly, and a profile of 4 more
-               decode steps and of one more prefill;
-8. invariant — both models in f32 at full width and 12 layers: after
-               prefill, decode_step's logits equal the last logits of a
-               forward over the extended sequence (the chunked scan on the
-               card against the recurrent step).
+6. ssm       — full-width mamba2_130m,
+7. hybrid    — full-width zamba2_2_7b,
+8. moe       — olmoe_1b_7b at full width and depth (64 experts, top 8),
+9. audio     — seamless_m4t_large_v2 at full width and depth (24 encoder
+               and 24 decoder layers), and
+10. vlm      — internvl2_76b at full width and 24 of its 80 layers (all 80
+               do not fit one card in bf16), each with random bf16 weights
+               from seed 0 through ``launch/quickstart.py``: prefill of 4 x
+               2048 positions (vlm: 256 patch embeddings + 1792 tokens;
+               audio: 1024 encoder frames and a BOS decoder prompt), then 32
+               greedy decode steps, with launches read around the prefill
+               and around the decode steps (each family's main path) and
+               checked exactly, and a profile of 4 more decode steps and of
+               one more prefill (device idle share, operations per step);
+11. invariant — the five models in f32 at full width (depth cut where
+               ``INVARIANT_MODELS`` says): after prefill, decode_step's
+               logits equal the last logits of a forward over the extended
+               sequence.
 
 Then one JSON line with every kernel's numbers (launches summed over the
-serve, ssm and hybrid phases) and, last, the result line
+serve, ssm, hybrid, moe, audio and vlm phases) and, last, the result line
 ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
@@ -265,18 +275,27 @@ def phase_kernels(torch, dev):
 
     cases, rows = [], {}
     # flash attention: prefill quantum, suffix after a cache hit, window
-    # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80).
-    # q is a transposed (B, S, H, D) view, as attention_block passes it.
-    for name, B, H, KV, D, sq, sk, qo, win, ragged in (
-            ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False),
-            ("fa_suffix_256_at_256", 1, 32, 8, 128, 256, 512, 256, 0, False),
-            ("fa_window64_512_ragged", 2, 32, 8, 128, 512, 512, 0, 64, True),
-            ("fa_mha_d80_causal_2048", 4, 32, 32, 80, 2048, 2048, 0, 0, False)):
+    # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80);
+    # olmoe_1b_7b's prefill (MHA 16, D 128); seamless_m4t_large_v2's encoder
+    # (unmasked over 1024 frames, MHA 16, D 64) and its decoder's BOS row
+    # across to those frames.  q is a transposed (B, S, H, D) view, as
+    # attention_block passes it.
+    for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
+            ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
+            ("fa_suffix_256_at_256", 1, 32, 8, 128, 256, 512, 256, 0, False, True),
+            ("fa_window64_512_ragged", 2, 32, 8, 128, 512, 512, 0, 64, True, True),
+            ("fa_mha_d80_causal_2048", 4, 32, 32, 80, 2048, 2048, 0, 0, False, True),
+            ("fa_olmoe_mha16_causal_2048", 4, 16, 16, 128, 2048, 2048, 0, 0, False,
+             True),
+            ("fa_audio_enc_noncausal_1024_d64", 4, 16, 16, 64, 1024, 1024, 0, 0,
+             False, False),
+            ("fa_audio_cross_sq1_1024_d64", 4, 16, 16, 64, 1, 1024, 0, 0, False,
+             False)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kl = [sk, sk - 77] if ragged else [sk] * B
         kvl = torch.tensor(kl, dtype=torch.int32, device=dev) if ragged else None
-        kw = dict(causal=True, sliding_window=win, q_offset=qo, kv_len=kvl)
+        kw = dict(causal=causal, sliding_window=win, q_offset=qo, kv_len=kvl)
         got = flash_attention(q, k, v, **kw)
         # the plain version in f32 on the same bf16 inputs; rounded to bf16
         # it is torch_attention(q, k, v) itself
@@ -296,17 +315,18 @@ def phase_kernels(torch, dev):
             raise AssertionError(f"{name}: two identical calls differ")
         qpos = torch.arange(sq, device=dev)[:, None] + qo
         kpos = torch.arange(sk, device=dev)[None]
-        mask = (qpos >= kpos) & ((qpos - kpos < win) if win else True)
-        mask = mask[None, None] & (kpos[None, None] < torch.tensor(
-            kl, device=dev)[:, None, None, None])
-        dense = qo == 0 and win == 0 and not ragged and sq == sk
-        pairs = _visible_pairs(sq, kl, True, win, qo)
+        mask = ((qpos >= kpos) if causal else True) & ((qpos - kpos < win) if win
+                                                      else True)
+        mask = mask & (kpos[None, None] < torch.tensor(kl, device=dev)[:, None, None,
+                                                                       None])
+        dense = qo == 0 and win == 0 and not ragged and (sq == sk or not causal)
+        pairs = _visible_pairs(sq, kl, causal, win, qo)
         flops = 4 * H * D * pairs
-        k_rows = sum(min(x, sq + qo) for x in kl)
+        k_rows = sum(min(x, sq + qo) if causal else x for x in kl)
         nbytes = 2 * (2 * B * H * sq * D + 2 * KV * k_rows * D)
         sets = _copies(torch, dev, nbytes, _bound(flops, nbytes)[1], (q, k, v))
         calls = [lambda t=t: flash_attention(*t, **kw) for t in sets]
-        lib = [(lambda t=t: F.scaled_dot_product_attention(*t, is_causal=True,
+        lib = [(lambda t=t: F.scaled_dot_product_attention(*t, is_causal=causal,
                                                            enable_gqa=True))
                if dense else
                (lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask,
@@ -323,15 +343,21 @@ def phase_kernels(torch, dev):
         cases.append(dict(case=name, pairs=pairs, **row))
         rows.setdefault("flash_attention", row)
     # flash decode: 8 slots with ragged cache lengths, with and without
-    # window (mistral_7b), and zamba2's shared block (MHA, D 80)
-    B, S = 8, 2048
-    for name, H, KV, D, win in (("fd_b8_s2048_ragged_win0", 32, 8, 128, 0),
-                                ("fd_b8_s2048_ragged_win64", 32, 8, 128, 64),
-                                ("fd_mha_d80_b8_s2048_ragged", 32, 32, 80, 0)):
+    # window (mistral_7b), zamba2's shared block (MHA, D 80), olmoe_1b_7b's
+    # decode (4 x ~2048, MHA 16, D 128) and seamless_m4t_large_v2's cross
+    # attention over a full cache of 1024 frames (MHA 16, D 64)
+    for name, B, S, H, KV, D, win, full in (
+            ("fd_b8_s2048_ragged_win0", 8, 2048, 32, 8, 128, 0, False),
+            ("fd_b8_s2048_ragged_win64", 8, 2048, 32, 8, 128, 64, False),
+            ("fd_mha_d80_b8_s2048_ragged", 8, 2048, 32, 32, 80, 0, False),
+            ("fd_olmoe_mha16_b4_s2088_ragged", 4, 2088, 16, 16, 128, 0, False),
+            ("fd_audio_cross_b4_s1024_d64", 4, 1024, 16, 16, 64, 0, True)):
         q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
         cl = torch.randint(1, S + 1, (B,), generator=g, device=dev,
                            dtype=torch.int32)
         cl[0] = S
+        if full:
+            cl.fill_(S)
         err = check(name, flash_decode(q, k, v, cl, sliding_window=win),
                     torch_decode(q, k, v, cl, sliding_window=win))
         kpos = torch.arange(S, device=dev)[None]
@@ -359,23 +385,26 @@ def phase_kernels(torch, dev):
         cases.append(dict(case=name, tokens_read=read, n_split=n_split,
                           split_keys=chunk, blocks=KV * B * n_split, **row))
         rows.setdefault("flash_decode", row)
-    edges = _edge_cases(torch, dev, rn, check, check_rel)
+    edges = _edge_cases(torch, dev, g, rn)
     edges += _ssd_edge_cases(torch, dev, g)
     _ssd_cases(torch, dev, g, cases, rows)
     _say("kernels", cases=cases, edge_cases=edges)
     return rows
 
 
-def _edge_cases(torch, dev, rn, check, check_rel):
+def _edge_cases(torch, dev, g, rn):
     """B1 and B2 in bf16 at the edges of their tiling and splits, each
-    against its plain version (2e-2, and B1 to REL_TOL), untimed: B1 with
-    ragged Sq/Sk, a
+    against its plain version (`kernels/checks.py`: 2e-2, B1 also B1_REL_TOL
+    in relative norm, repeats bit-equal), untimed: B1 with ragged Sq/Sk, a
     q_offset with Sq < Sk, a window across tile edges, ragged kv_len and
     rows with no visible key (output 0, LSE -inf where the plain version
     has it), at D 64/80/128; B2 with cache_len 0, 1, under one split, on a
-    split boundary, one past it and S, with windows across a boundary."""
-    from repro_torch.kernels.flash_attention import flash_attention, torch_attention
-    from repro_torch.kernels.flash_decode import flash_decode, split_plan, torch_decode
+    split boundary, one past it and S, with windows across a boundary; and
+    the encoder-decoder's edges (`checks.cross_edge_checks`): B1 with one
+    query row, causal and across to 1024 frames, B1 unmasked over 1024, B2
+    over a full 1024-key cross cache."""
+    from repro_torch.kernels.checks import attention_check, cross_edge_checks, decode_check
+    from repro_torch.kernels.flash_decode import split_plan
     out = []
     for name, B, H, KV, D, sq, sk, causal, win, qo, kvl in (
             ("fa_ragged_100_at_60_of_160_d64", 2, 16, 4, 64, 100, 160, True, 0, 60,
@@ -386,18 +415,8 @@ def _edge_cases(torch, dev, rn, check, check_rel):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev) if kvl else None
-        kw = dict(causal=causal, sliding_window=win, q_offset=qo, kv_len=kv_len,
-                  return_lse=True)
-        got, lse = flash_attention(q, k, v, **kw)
-        want, want_lse = torch_attention(q.float(), k.float(), v.float(), **kw)
-        empty = torch.isneginf(want_lse)
-        if not (torch.equal(torch.isneginf(lse), empty)
-                and bool((got[empty] == 0).all())):
-            raise AssertionError(f"{name}: empty rows are not 0 with LSE -inf")
-        err = max(check(name, got, want.to(q.dtype)),
-                  check(name + " lse", lse[~empty], want_lse[~empty]))
-        out.append(dict(case=name, empty_rows=int(empty.sum()), max_abs_err=err,
-                        rel_err=check_rel(name, got, want)))
+        out.append(attention_check(name, q, k, v, causal=causal, sliding_window=win,
+                                   q_offset=qo, kv_len=kv_len))
     B, KV, S = 8, 8, 2048
     n_split, chunk = split_plan(B, KV, S, torch.cuda.get_device_properties(
         dev).multi_processor_count)
@@ -407,14 +426,9 @@ def _edge_cases(torch, dev, rn, check, check_rel):
         q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
         for win in (0, chunk // 2 + 3):
             name = f"fd_split_edges_d{D}_rep{H // KV}_win{win}"
-            got = flash_decode(q, k, v, cl, sliding_window=win)
-            if not bool((got[0] == 0).all()):
-                raise AssertionError(f"{name}: cache_len 0 did not give 0")
-            err = check(name, got[1:], torch_decode(q, k, v, cl,
-                                                    sliding_window=win)[1:])
-            out.append(dict(case=name, n_split=n_split, split_keys=chunk,
-                            cache_len=cl.tolist(), max_abs_err=err))
-    return out
+            out.append(dict(decode_check(name, q, k, v, cl, sliding_window=win),
+                            n_split=n_split, split_keys=chunk))
+    return out + cross_edge_checks(generator=g, device=dev)
 
 
 def _ssd_cases(torch, dev, g, cases, rows):
@@ -645,7 +659,7 @@ def _profile_steps(torch, step, n):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel = {}
+    per_kernel, launched = {}, 0
     for e in prof.key_averages():
         # device-side kernel events only: an operator's own entry repeats
         # the time of the kernels it launched
@@ -656,11 +670,13 @@ def _profile_steps(torch, step, n):
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us
+            launched += e.count
     busy = sum(per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     return dict(iterations=n, wall_ms_per_iter=1e3 * wall / n,
                 device_busy_ms_per_iter=(1e3 * busy / n) if busy else "not measured",
                 device_idle_share=(1 - busy / wall) if busy else "not measured",
+                device_ops_per_iter=launched / n if busy else "not measured",
                 top_kernels_ms_per_iter={k[:60]: v / 1e3 / n for k, v in top})
 
 
@@ -691,33 +707,56 @@ def _expect(phase, what, got, want):
                              f"expected {want}")
 
 
-def phase_mamba(torch, dev, phase, arch):
-    """A Mamba2 main path at full width in bf16 (random weights from seed
-    0) through launch/quickstart.py: prefill 4 x 2048 tokens, then 32
-    greedy decode steps, with each kernel's launches checked exactly."""
+def _expected_launches(cfg):
+    """{kernel: (launches per prefill, per decode step)} on a model's main
+    path through the model API."""
+    n, fam = cfg.num_layers, cfg.family
+    if fam in ("ssm", "hybrid"):
+        attn = n // cfg.attn_every if cfg.attn_every else 0
+        return {"ssd_scan": (n, 0), "flash_attention": (attn, 0),
+                "flash_decode": (0, attn)}
+    if fam == "audio":      # encoder, decoder self and cross attention
+        return {"ssd_scan": (0, 0), "flash_attention": (cfg.encoder_layers + 2 * n, 0),
+                "flash_decode": (0, 2 * n)}
+    return {"ssd_scan": (0, 0), "flash_attention": (n, 0), "flash_decode": (0, n)}
+
+
+def _nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def phase_model(torch, dev, phase, arch, layers=None, cut=None):
+    """A model's main path at full width in bf16 (random weights from seed
+    0) through launch/quickstart.py: prefill of 4 sequences of 2048
+    positions (vlm: 256 patch embeddings and 1792 tokens; audio: 1024
+    encoder frames and a BOS decoder prompt), then 32 greedy decode steps,
+    with each kernel's launches checked exactly, and a profile of 4 more
+    decode steps and of one more prefill.  `layers` cuts the depth."""
     from repro_torch.configs import get_config
     from repro_torch.launch import quickstart
     from repro_torch.models import decode_step, init_params
 
     cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     B, S, N = 4, 2048, 32
+    prompt_len = S - cfg.frontend_tokens if cfg.family == "vlm" else S
     params = init_params(cfg, seed=0, device=dev)
-
-    def nbytes(tree):
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        if isinstance(tree, list):
-            return sum(nbytes(v) for v in tree)
-        return tree.numel() * tree.element_size()
-    weights_gb = nbytes(params) / 1e9
+    weights_gb = _nbytes(params) / 1e9
     # warm-up at a short prompt: first-call costs stay out of the timings
-    lg, cache = quickstart.start(cfg, params, quickstart.make_prompt(
-        cfg, B, 64, seed=1, device=dev), 64 + 3)
+    lg, cache = quickstart.start(cfg, params, quickstart.make_batch(
+        cfg, B, 64, seed=1, device=dev), 3)
     quickstart.greedy(cfg, params, cache, lg, 3)
-    prompt = quickstart.make_prompt(cfg, B, S, seed=0, device=dev)
+    del cache, lg
+    batch = quickstart.make_batch(cfg, B, prompt_len, seed=0, device=dev)
     torch.cuda.reset_peak_memory_stats()
     (lg, cache), prefill_s, pre = _run_counted(
-        torch, lambda: quickstart.start(cfg, params, prompt, S + N + 8))
+        torch, lambda: quickstart.start(cfg, params, batch, N + 8))
     prefill_finite = bool(torch.isfinite(lg).all())
     (toks, finite), decode_s, dec = _run_counted(
         torch, lambda: quickstart.greedy(cfg, params, cache, lg, N + 1))
@@ -725,23 +764,21 @@ def phase_mamba(torch, dev, phase, arch):
         raise AssertionError(f"{phase}: a logit is not finite")
     if not all(0 <= int(t.min()) and int(t.max()) < cfg.vocab_size for t in toks):
         raise AssertionError(f"{phase}: a generated token is out of the vocab")
-    n_attn = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
-    _expect(phase, "ssd_scan per prefill", pre["ssd_scan"], cfg.num_layers)
-    _expect(phase, "flash_attention per prefill", pre["flash_attention"], n_attn)
-    _expect(phase, "flash_decode per prefill", pre["flash_decode"], 0)
-    _expect(phase, "flash_decode per decode step", dec["flash_decode"], n_attn * N)
-    _expect(phase, "ssd_scan/flash_attention in decode",
-            dec["ssd_scan"] + dec["flash_attention"], 0)
+    for name, (per_prefill, per_step) in _expected_launches(cfg).items():
+        _expect(phase, f"{name} per prefill", pre[name], per_prefill)
+        _expect(phase, f"{name} over {N} decode steps", dec[name], per_step * N)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # where a decode step's time goes: 4 more steps under the profiler
     prof = _profile_steps(torch, lambda: decode_step(cfg, params, cache, toks[-1]), 4)
     # and a prefill's: one more under the profiler
-    del cache
-    pre_prof = _profile_steps(torch, lambda: quickstart.start(cfg, params, prompt,
-                                                              S + N + 8), 1)
-    _say(phase, arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
-         dtype=cfg.dtype, weights_gb=weights_gb, batch=B, prompt_len=S,
-         prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
+    del cache, lg
+    pre_prof = _profile_steps(torch, lambda: quickstart.start(cfg, params, batch,
+                                                              N + 8), 1)
+    extra = dict(layers_full=full_layers, cut=cut) if layers else {}
+    _say(phase, arch=arch, family=cfg.family, layers=cfg.num_layers, **extra,
+         d_model=cfg.d_model, dtype=cfg.dtype, weights_gb=weights_gb, batch=B,
+         prefill_positions=S, prompt_tokens=batch["tokens"].shape[1],
+         prefill_s=prefill_s, prefill_positions_per_s=B * S / prefill_s,
          decode_steps=N, decode_ms_per_step=1e3 * decode_s / N,
          decode_tokens_per_s=B * N / decode_s, launches_prefill=pre,
          launches_decode=dec, logits_finite=True, max_memory_allocated_gb=peak_gb,
@@ -749,27 +786,42 @@ def phase_mamba(torch, dev, phase, arch):
     return {n: pre[n] + dec[n] for n in pre}
 
 
+#: the invariant's models (f32, full width): (arch, layers kept, why cut)
+INVARIANT_MODELS = (
+    ("mamba2_130m", 12, "12 of 24 layers"),
+    ("zamba2_2_7b", 12, "12 of 54 layers (two hybrid segments)"),
+    ("olmoe_1b_7b", None, None),
+    ("seamless_m4t_large_v2", None, None),
+    ("internvl2_76b", 12, "12 of 80 layers: 3.4 GB each in f32"))
+
+
 def phase_invariant(torch, dev):
-    """The serving invariant on the card, in f32 at full width and 12
-    layers (two hybrid segments): prefill's logits equal the last logits of
-    forward (1e-3), and decode_step's after prefill equal forward's over
-    the extended sequence (5e-3), the tolerances of tests/test_models.py."""
+    """The serving invariant on the card, in f32 at full width (depth cut
+    where `INVARIANT_MODELS` says): prefill's logits equal the last logits
+    of forward (1e-3), and decode_step's after prefill equal forward's over
+    the extended sequence (5e-3), the tolerances of tests/test_models.py;
+    moe with the dropless capacity factor E, as there.  2 sequences of 300
+    tokens (vlm: after 256 patch embeddings; audio: against 1024 frames)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import quickstart
     from repro_torch.models import decode_step, forward, init_params
 
-    errs = {}
-    for arch in ("mamba2_130m", "zamba2_2_7b"):
-        cfg = dataclasses.replace(get_config(arch), num_layers=12,
-                                  dtype="float32")
+    errs, cuts = {}, {}
+    for arch, layers, cut in INVARIANT_MODELS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+            cuts[arch] = cut
         params = init_params(cfg, seed=0, device=dev)
-        prompt = quickstart.make_prompt(cfg, 2, 300, seed=2, device=dev)
-        logits, _ = forward(cfg, params, {"tokens": prompt})
-        lg, cache = quickstart.start(cfg, params, prompt, 301)
+        batch = quickstart.make_batch(cfg, 2, 300, seed=2, device=dev)
+        batch["tokens"] = quickstart.make_prompt(cfg, 2, 300, seed=2, device=dev)
+        cf = float(cfg.num_experts) if cfg.family == "moe" else None
+        logits, _ = forward(cfg, params, batch, moe_cf=cf)
+        lg, cache = quickstart.start(cfg, params, batch, 1)
         tok = lg.argmax(-1)
         lg2, _ = decode_step(cfg, params, cache, tok)
-        full, _ = forward(cfg, params,
-                          {"tokens": torch.cat([prompt, tok[:, None]], 1)})
+        full, _ = forward(cfg, params, dict(
+            batch, tokens=torch.cat([batch["tokens"], tok[:, None]], 1)), moe_cf=cf)
         for what, got, want, tol in (("prefill", lg, logits[:, -1], 1e-3),
                                      ("decode", lg2, full[:, -1], 5e-3)):
             err = (got - want).abs().max().item()
@@ -777,8 +829,9 @@ def phase_invariant(torch, dev):
                 raise AssertionError(f"invariant: {arch} {what} logits differ "
                                      f"from forward by {err} (tol {tol})")
             errs[f"{arch}_{what}_max_abs_err"] = err
-        del params, cache
-    _say("invariant", layers=12, dtype="float32", batch=2, prompt_len=300,
+        del params, cache, logits, full
+        torch.cuda.empty_cache()
+    _say("invariant", dtype="float32", batch=2, prompt_len=300, depth_cut=cuts,
          tol_prefill=1e-3, tol_decode=5e-3, **errs)
 
 
@@ -831,8 +884,14 @@ def main() -> int:
     phase_profile(torch, dev, cfg, params)
     del params
     torch.cuda.empty_cache()
-    for phase, arch in (("ssm", "mamba2_130m"), ("hybrid", "zamba2_2_7b")):
-        for name, n in phase_mamba(torch, dev, phase, arch).items():
+    for phase, arch, layers, cut in (
+            ("ssm", "mamba2_130m", None, None),
+            ("hybrid", "zamba2_2_7b", None, None),
+            ("moe", "olmoe_1b_7b", None, None),
+            ("audio", "seamless_m4t_large_v2", None, None),
+            ("vlm", "internvl2_76b", 24,
+             "24 of 80 layers: 80 are ~141 GB in bf16, over one card's 80 GB")):
+        for name, n in phase_model(torch, dev, phase, arch, layers, cut).items():
             launches[name] += n
         torch.cuda.empty_cache()
     phase_invariant(torch, dev)

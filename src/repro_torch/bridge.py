@@ -28,18 +28,25 @@ def _leaves(tree, fn):
     return fn(np.asarray(tree))
 
 
+def _per_layer(stacked: Dict[str, Any], device) -> list:
+    """A tree whose every leaf has a leading L axis -> one tree per layer
+    (nested dicts, such as moe's "shared", sliced alike)."""
+    n = len(np.asarray(stacked["ln1" if "ln1" in stacked else "ln"]))
+    return [_leaves(stacked, lambda a, i=i: _tensor(a[i], device))
+            for i in range(n)]
+
+
 def params_from_jax(tree: Dict[str, Any], *, device="cuda") -> Dict[str, Any]:
     """The reference's tree -> the port's params, each leaf keeping its
-    dtype.  {"embed", "final_norm", "lm_head", "layers": {...} with a
-    leading L axis on every leaf} [+ "shared": {...} unstacked (hybrid)];
-    "layers" holds {"attn", "mlp", "ln1", "ln2"} (dense) or {"mamba", "ln"}
-    (ssm, hybrid) and becomes one dict per layer."""
-    layers = tree["layers"]
-    n_layers = len(np.asarray(layers["ln1" if "ln1" in layers else "ln"]))
+    dtype (so moe's router stays f32).  {"embed", "final_norm", "lm_head",
+    "layers": {...} with a leading L axis on every leaf} [+ "shared": {...}
+    unstacked (hybrid)] [+ "encoder": {...} stacked and "enc_norm" (audio)];
+    "layers" and "encoder" become one dict per layer."""
     p = {name: _tensor(tree[name], device)
-         for name in ("embed", "final_norm", "lm_head")}
-    p["layers"] = [_leaves(layers, lambda a, i=i: _tensor(a[i], device))
-                   for i in range(n_layers)]
+         for name in ("embed", "final_norm", "lm_head", "enc_norm") if name in tree}
+    for name in ("layers", "encoder"):
+        if name in tree:
+            p[name] = _per_layer(tree[name], device)
     if "shared" in tree:
         p["shared"] = _leaves(tree["shared"], lambda a: _tensor(a, device))
     return p

@@ -383,7 +383,9 @@ cudaError_t dispatch_rep(const Params& p, int B, int n_rep, void* o, cudaStream_
   switch (n_rep) {
     case 1: return launch<T, D, 1>(p, B, o, s);
     case 2: return launch<T, D, 2>(p, B, o, s);
+    case 3: return launch<T, D, 3>(p, B, o, s);
     case 4: return launch<T, D, 4>(p, B, o, s);
+    case 5: return launch<T, D, 5>(p, B, o, s);
     case 7: return launch<T, D, 7>(p, B, o, s);
     case 8: return launch<T, D, 8>(p, B, o, s);
     default: return cudaErrorInvalidValue;

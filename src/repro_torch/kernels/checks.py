@@ -1,6 +1,11 @@
 """Agreement checks of the hand kernels against their plain versions, shared
-by `chip_smoke.py` and the tests: the relative-norm measure, B3's inputs
-and edge grid, and B3's check with the faults it must be able to see.
+by `chip_smoke.py` and the tests: the relative-norm measure, B1's and B2's
+checks with the edge cases of the encoder-decoder path, B3's inputs and
+edge grid, and B3's check with the faults it must be able to see.
+
+B1 in bf16 is held to 2e-2 elementwise and to B1_REL_TOL per (batch, head)
+against its plain version in f32 (the bf16 roundings of P and the output
+read ~2e-3, a dropped 128-key tile 2e-2 or more); in f32 to 2e-5 both ways.
 
 A bf16 B3 output is held to SSD_REL_TOL in ||got - want|| / ||want|| per
 (batch, head), on y and on the final state, against the plain version in
@@ -15,10 +20,116 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention, torch_attention
+from repro_torch.kernels.flash_decode import flash_decode, torch_decode
 from repro_torch.kernels.ssd_kernel import chunk_len, ssd_scan, torch_ssd_scan
 
 TOL = 2e-2           # bf16: atol = rtol, one rounding of the output
+B1_REL_TOL = 5e-3    # bf16 B1, per (batch, head)
 SSD_REL_TOL = 5e-3   # bf16 B3, y and the state, per (batch, head)
+F32_TOL = 2e-5       # f32 kernels: sums in another order
+
+#: B1 at the edges the encoder-decoder path adds, head dim 64 and 16 MHA
+#: heads as seamless_m4t_large_v2: (name, b, sq, sk, causal, q_offset,
+#: kv_len).  The decoder's BOS prefill runs one query row in a 128-row tile,
+#: causal (against a long cache at an offset, and at offset 0 where it sees
+#: key 0 alone) and across to the encoder's 1024 frames; the encoder runs
+#: 1024 rows unmasked.  kv_len 0 gives an empty row (0, LSE -inf).
+CROSS_ATTENTION_EDGES = [
+    ("fa_sq1_causal_at1023_of_1024", 4, 1, 1024, True, 1023, (1024, 700, 1, 0)),
+    ("fa_sq1_causal_at0_of_1024", 4, 1, 1024, True, 0, (1024, 700, 1, 0)),
+    ("fa_sq1_cross_1024", 4, 1, 1024, False, 0, (1024, 1000, 129, 1)),
+    ("fa_noncausal_1024", 2, 1024, 1024, False, 0, (1024, 777)),
+]
+
+
+def attention_inputs(b: int, h: int, kvh: int, d: int, sq: int, sk: int, *,
+                     generator: torch.Generator, device,
+                     dtype: torch.dtype = torch.bfloat16):
+    """q (b, h, sq, d), k and v (b, kvh, sk, d), each a transposed view of a
+    (b, s, heads, d) projection, as `attention_block` passes them."""
+    def rn(s, n):
+        return torch.randn((b, s, n, d), generator=generator, device=device
+                           ).to(dtype).transpose(1, 2)
+    return rn(sq, h), rn(sk, kvh), rn(sk, kvh)
+
+
+def attention_check(name: str, q, k, v, **kw) -> dict:
+    """B1 on the card against `torch_attention` in f32 on the same inputs:
+    elementwise (TOL in bf16, F32_TOL in f32), in relative norm per (batch,
+    head) (B1_REL_TOL, F32_TOL), rows with no visible key 0 with LSE -inf
+    where the plain version has them, and two identical calls bit-equal.
+    Returns the readings; raises AssertionError."""
+    bf16 = q.dtype == torch.bfloat16
+    tol, rel_tol = (TOL, B1_REL_TOL) if bf16 else (F32_TOL, F32_TOL)
+    kw = dict(kw, return_lse=True)
+    got, lse = flash_attention(q, k, v, **kw)
+    want, want_lse = torch_attention(q.float(), k.float(), v.float(), **kw)
+    empty = torch.isneginf(want_lse)
+    if not (torch.equal(torch.isneginf(lse), empty) and bool((got[empty] == 0).all())):
+        raise AssertionError(f"{name}: empty rows are not 0 with LSE -inf")
+    err = max((got.float() - want.to(q.dtype).float()).abs().max().item(),
+              (lse[~empty] - want_lse[~empty]).abs().max().item() if bool((~empty).any())
+              else 0.0)
+    if not (torch.allclose(got.float(), want.to(q.dtype).float(), atol=tol, rtol=tol)
+            and torch.allclose(lse[~empty], want_lse[~empty], atol=tol, rtol=tol)):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version, "
+                             f"max |err| {err} (tol {tol})")
+    rel = rel_err(got, want)
+    if not rel < rel_tol:
+        raise AssertionError(f"{name}: ||got - want|| / ||want|| {rel} in a "
+                             f"(batch, head) (limit {rel_tol})")
+    again, again_lse = flash_attention(q, k, v, **kw)
+    if not (torch.equal(again, got) and torch.equal(again_lse, lse)):
+        raise AssertionError(f"{name}: two identical calls differ")
+    return dict(case=name, empty_rows=int(empty.sum()), max_abs_err=err, tol=tol,
+                rel_err=rel, rel_tol=rel_tol, bit_equal_repeat=True)
+
+
+def decode_check(name: str, q, k, v, cache_len, *, sliding_window: int = 0) -> dict:
+    """B2 on the card against `torch_decode` (TOL in bf16, F32_TOL in f32),
+    0 where cache_len is 0, two identical calls bit-equal.  Returns the
+    readings; raises AssertionError."""
+    tol = TOL if q.dtype == torch.bfloat16 else F32_TOL
+    got = flash_decode(q, k, v, cache_len, sliding_window=sliding_window)
+    empty = cache_len == 0
+    if not bool((got[empty] == 0).all()):
+        raise AssertionError(f"{name}: cache_len 0 did not give 0")
+    # where cache_len is 0 the reference's windowed XLA path (and so
+    # torch_decode) averages the cache instead of giving 0
+    want = torch_decode(q, k, v, cache_len, sliding_window=sliding_window)
+    got_f, want_f = got[~empty].float(), want[~empty].float()
+    err = (got_f - want_f).abs().max().item()
+    if not torch.allclose(got_f, want_f, atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version, "
+                             f"max |err| {err} (tol {tol})")
+    if not torch.equal(flash_decode(q, k, v, cache_len, sliding_window=sliding_window),
+                       got):
+        raise AssertionError(f"{name}: two identical calls differ")
+    return dict(case=name, cache_len=cache_len.tolist(), max_abs_err=err, tol=tol,
+                bit_equal_repeat=True)
+
+
+def cross_edge_checks(*, generator: torch.Generator, device,
+                      dtype: torch.dtype = torch.bfloat16) -> List[dict]:
+    """B1 on `CROSS_ATTENTION_EDGES` and B2 over a full cross cache
+    (cache_len = S = 1024 for every sequence), at D 64 with 16 MHA heads.
+    Returns the readings; raises AssertionError."""
+    out = []
+    h, d = 16, 64
+    for name, b, sq, sk, causal, qo, kvl in CROSS_ATTENTION_EDGES:
+        q, k, v = attention_inputs(b, h, h, d, sq, sk, generator=generator,
+                                   device=device, dtype=dtype)
+        kv_len = torch.tensor(kvl, dtype=torch.int32, device=device)
+        out.append(attention_check(name, q, k, v, causal=causal, q_offset=qo,
+                                   kv_len=kv_len))
+    b, s = 4, 1024
+    q = torch.randn((b, h, d), generator=generator, device=device).to(dtype)
+    k, v = (torch.randn((b, h, s, d), generator=generator, device=device).to(dtype)
+            for _ in range(2))
+    out.append(decode_check("fd_cross_full_1024", q, k, v,
+                            torch.full((b,), s, dtype=torch.int32, device=device)))
+    return out
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:

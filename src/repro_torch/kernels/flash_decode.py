@@ -24,7 +24,7 @@ from repro_torch.kernels.ref import NEG_INF, _repeat_kv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 80, 128)
-_N_REP = (1, 2, 4, 7, 8)
+_N_REP = (1, 2, 3, 4, 5, 7, 8)
 _SPLIT_ALIGN = 64            # keys: a split's length is a multiple of this
 _BLOCKS_PER_SM = 4           # grid the split aims at
 

@@ -2,7 +2,10 @@
 greedily decode a few tokens through the model's serving API, and show the
 PecSched SP planner for attention models.  By default it runs the FULL
 config in bf16 on the card (random weights from a seed); ``--device cpu
---layers N`` runs a reduced f32 model on the CPU.
+--layers N`` runs a reduced f32 model on the CPU.  vlm models get seeded
+patch embeddings before the prompt, audio models seeded encoder frames
+and a BOS-only decoder prompt (the frontends are stubs, as in the
+reference).
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart --arch zamba2_2_7b
     PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu --layers 2
@@ -22,6 +25,9 @@ from repro_torch.hardware import resolve_device
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
 from repro_torch.sp.planner import plan_fast_sp
 
+#: the decoder's start token for audio (the reference names no id)
+BOS = 0
+
 
 def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, *,
                 seed: int = 0, device="cpu") -> torch.Tensor:
@@ -31,11 +37,37 @@ def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, *,
                          generator=g).to(device)
 
 
-def start(cfg: ModelConfig, params, prompt: torch.Tensor, max_len: int
+def make_batch(cfg: ModelConfig, batch: int, prompt_len: int, *,
+               seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """The model's inputs, as the reference's quickstart draws them: tokens
+    (batch, prompt_len) from `make_prompt`; vlm adds "embeds" and audio
+    "frames" (batch, frontend_tokens, d_model), standard normal from a CPU
+    generator seeded seed + 1; audio's decoder prompt is BOS alone (batch,
+    1), as `models.prefill` expects."""
+    if cfg.family == "audio":
+        out = {"tokens": torch.full((batch, 1), BOS, device=device)}
+    else:
+        out = {"tokens": make_prompt(cfg, batch, prompt_len, seed=seed,
+                                     device=device)}
+    if cfg.family in ("vlm", "audio"):
+        g = torch.Generator().manual_seed(seed + 1)
+        out["embeds" if cfg.family == "vlm" else "frames"] = torch.randn(
+            (batch, cfg.frontend_tokens, cfg.d_model), generator=g).to(device)
+    return out
+
+
+def start(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], n_new: int
           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """init_cache + prefill: (last-token logits (B, V), the filled cache)."""
-    cache = init_cache(cfg, prompt.shape[0], max_len, device=prompt.device)
-    return prefill(cfg, params, {"tokens": prompt}, cache)
+    """init_cache (room for the prefill's positions and n_new more) +
+    prefill, moe with the dropless capacity factor E: (last-token logits
+    (B, V), the filled cache)."""
+    tokens = batch["tokens"]
+    n = tokens.shape[1] + (batch["embeds"].shape[1] if "embeds" in batch else 0)
+    enc_len = batch["frames"].shape[1] if "frames" in batch else 0
+    cache = init_cache(cfg, tokens.shape[0], n + n_new, enc_len=enc_len,
+                       device=tokens.device)
+    cf = float(cfg.num_experts) if cfg.family == "moe" else None
+    return prefill(cfg, params, batch, cache, moe_cf=cf)
 
 
 def greedy(cfg: ModelConfig, params, cache: Dict[str, Any],
@@ -75,12 +107,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
           f"params(full)={full.param_count() / 1e9:.2f}B "
           f"[run: {cfg.num_layers}L d={cfg.d_model} {cfg.dtype} on {device}]")
     params = init_params(cfg, seed=0, device=device)
-    prompt = make_prompt(cfg, args.batch, args.prompt_len, seed=0, device=device)
-    logits, _ = forward(cfg, params, {"tokens": prompt})
+    batch = make_batch(cfg, args.batch, args.prompt_len, seed=0, device=device)
+    logits, _ = forward(cfg, params, batch)
     finite = bool(torch.isfinite(logits).all())
     print(f"forward: logits {tuple(logits.shape)}, finite={finite}")
 
-    lg, cache = start(cfg, params, prompt, args.prompt_len + args.tokens)
+    lg, cache = start(cfg, params, batch, args.tokens)
     toks, decode_finite = greedy(cfg, params, cache, lg, args.tokens)
     gen = torch.stack(toks, 1).tolist()
     print(f"greedy decode ({args.tokens} tokens): {gen}, "

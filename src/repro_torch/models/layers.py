@@ -58,29 +58,40 @@ class KVCache(NamedTuple):
 def attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                     x: torch.Tensor, positions: torch.Tensor, *,
                     causal: bool = True, sliding_window: int = 0,
-                    write_cache: bool = False, impl: str = "auto",
-                    attn_fn=None):
-    """Full-sequence self-attention (prefill).  x (B, S, d).
+                    write_cache: bool = False,
+                    cross_kv: Optional[KVCache] = None,
+                    cross_len: Optional[torch.Tensor] = None,
+                    impl: str = "auto", attn_fn=None):
+    """Full-sequence attention (prefill).  x (B, S, d).
 
     write_cache: also return a KVCache of the projected K/V (B, KV, S, hd).
+    cross_kv: attend to these K/V (B, KV, Skv, hd) instead (cross
+    attention): no RoPE, not causal, keys up to ``cross_len`` (B,) if given,
+    and no KVCache returned.
     attn_fn: replaces the core ``ops.attention(qh, kh, vh)`` call, called as
     ``attn_fn(qh, kh, vh, causal=..., sliding_window=...)`` — the hook the
     gang-SP path uses to keep projections, RoPE and residuals shared."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
-    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if cross_kv is None:
+        k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
+        v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    else:
+        kh, vh = cross_kv
+        causal = False
+    qh = q.transpose(1, 2)
     if attn_fn is None:
         o = ops.attention(qh, kh, vh, causal=causal,
-                          sliding_window=sliding_window, impl=impl)
+                          sliding_window=sliding_window, kv_len=cross_len,
+                          impl=impl)
     else:
         o = attn_fn(qh, kh, vh, causal=causal, sliding_window=sliding_window)
     out = linear(o.transpose(1, 2).reshape(B, S, H * hd), p["wo"])
-    if write_cache:
+    if write_cache and cross_kv is None:
         return out, KVCache(k=kh, v=vh)
     return out
 
@@ -88,6 +99,8 @@ def attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                            x: torch.Tensor, cache: KVCache,
                            cache_len: torch.Tensor, *, sliding_window: int = 0,
+                           cross: bool = False,
+                           cross_len: Optional[torch.Tensor] = None,
                            impl: str = "auto"):
     """One-token decode.  x (B, d); cache k/v (B, KV, S_max, hd); cache_len
     (B,) = tokens already cached.  Returns (out (B, d), cache).
@@ -97,10 +110,15 @@ def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     the whole cache through a one-hot mask), so the returned cache is the
     same storage as the one passed in.  (The reference's ring-buffer
     long-context mode is not ported: no serving path uses it.)
+    cross: attend to a fixed cross cache of ``cross_len`` (B,) keys: no
+    write, no RoPE.
     """
     B, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(B, H, hd)
+    if cross:
+        o = ops.decode_attention(q, cache.k, cache.v, cross_len, impl=impl)
+        return linear(o.reshape(B, H * hd), p["wo"]), cache
     k = linear(x, p["wk"], p.get("bk")).reshape(B, KV, hd)
     v = linear(x, p["wv"], p.get("bv")).reshape(B, KV, hd)
     q = rope(q[:, None], cache_len[:, None], cfg.rope_theta)[:, 0]   # pos = len

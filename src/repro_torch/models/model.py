@@ -1,25 +1,27 @@
-"""Decoder models of the dense, ssm (Mamba2) and hybrid (Zamba2) families:
-init / forward / prefill / decode_step over per-layer weight dicts (a Python
-loop over layers where the reference scans a stacked L axis).
+"""Models of the reference's six families (dense, moe, ssm, hybrid, audio
+enc-dec, vlm): init / forward / prefill / decode_step over per-layer weight
+dicts (a Python loop over layers where the reference scans a stacked L
+axis).
 
 Parameters: {"embed" (V, d), "final_norm" (d,), "lm_head" (d, V), "layers":
 [...one dict per layer...]}, each layer {"attn", "mlp", "ln1", "ln2"}
-(dense) or {"mamba", "ln"} (ssm, hybrid); the hybrid adds ONE "shared"
-{"attn", "mlp", "ln1", "ln2"} block, applied after every `attn_every`
-Mamba2 layers.
+(dense, vlm), {"attn", "moe", "ln1", "ln2"} (moe), {"mamba", "ln"} (ssm,
+hybrid) or the audio decoder's {"attn", "xattn", "mlp", "ln1", "ln2",
+"ln3"}.  The hybrid adds ONE "shared" {"attn", "mlp", "ln1", "ln2"} block,
+applied after every `attn_every` Mamba2 layers; audio adds "encoder" (one
+{"attn", "mlp", "ln1", "ln2"} per encoder layer) and "enc_norm" (d,).
 
 Cache (dict), the reference's layout:
   len         (B,) int32                tokens already cached
-  k, v        (L, B, KV, S_max, hd)     dense
+  k, v        (L, B, KV, S_max, hd)     dense, moe, vlm, audio (decoder)
   ssm         SSMState: conv (L, B, K-1, Cd), ssm (L, B, nh, hd, ns) f32
   sh_k, sh_v  (Ns, B, KV, S_max, hd)    hybrid, one per shared-block use
+  cross_k, cross_v (L, B, KV, F, hd)    audio cross attention (fixed)
+  cross_len   (B,) int32
 `prefill` and `decode_step` update these tensors in place (the reference
 returns new arrays), so the cache returned is the storage passed in.  The
-reference's ring-buffer mode is not ported: a prompt longer than S_max
-raises.
-
-The moe, audio and vlm families raise NotImplementedError until ROADMAP
-Queue A8.
+reference's ring-buffer mode is not ported: a prompt (or frame sequence)
+longer than the cache raises.
 """
 from __future__ import annotations
 
@@ -30,20 +32,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue A8); "
-            f"the port serves the {', '.join(FAMILIES)} families")
 
 
 def _segments(cfg: ModelConfig) -> int:
@@ -58,30 +54,42 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Random weights from a seeded generator on `device`, with the
     reference's distributions (it draws other numbers from the same seed;
     `bridge.params_from_jax` carries the reference's own weights)."""
-    _require_ported(cfg)
+    fam = cfg.family
+    if fam not in FAMILIES:
+        raise ValueError(f"unknown model family {fam!r}")
     dt = _dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, V, nl = cfg.d_model, cfg.padded_vocab, cfg.num_layers
 
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
+
+    def block(**extra):
+        return dict({"attn": L.init_attn(gen, cfg, dt, device),
+                     "mlp": L.init_mlp(gen, cfg, dt, device),
+                     "ln1": ones(d), "ln2": ones(d)}, **extra)
     p: Params = {
         "embed": torch.randn((V, d), generator=gen, dtype=dt, device=device) * 0.02,
         "final_norm": ones(d),
         "lm_head": torch.randn((d, V), generator=gen, dtype=dt,
                                device=device) * d ** -0.5,
     }
-    if cfg.family == "dense":
+    if fam in ("dense", "vlm"):
+        p["layers"] = [block() for _ in range(nl)]
+    elif fam == "moe":
         p["layers"] = [{"attn": L.init_attn(gen, cfg, dt, device),
-                        "mlp": L.init_mlp(gen, cfg, dt, device),
+                        "moe": MOE.init_moe(gen, cfg, dt, device),
                         "ln1": ones(d), "ln2": ones(d)} for _ in range(nl)]
+    elif fam == "audio":
+        p["encoder"] = [block() for _ in range(cfg.encoder_layers)]
+        p["enc_norm"] = ones(d)
+        p["layers"] = [block(xattn=L.init_attn(gen, cfg, dt, device), ln3=ones(d))
+                       for _ in range(nl)]
     else:
         p["layers"] = [{"mamba": M.init_mamba2(gen, cfg, dt, device),
                         "ln": ones(d)} for _ in range(nl)]
-    if cfg.family == "hybrid":
-        p["shared"] = {"attn": L.init_attn(gen, cfg, dt, device),
-                       "mlp": L.init_mlp(gen, cfg, dt, device),
-                       "ln1": ones(d), "ln2": ones(d)}
+    if fam == "hybrid":
+        p["shared"] = block()
     return p
 
 
@@ -113,30 +121,107 @@ def _mamba_layer(cfg, pl, x, *, impl, write_cache):
     return x + h, st
 
 
+def _moe_layer(cfg, pl, x, positions, *, impl, write_cache, moe_cf=None):
+    h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
+                          positions, write_cache=write_cache, impl=impl)
+    kv = None
+    if write_cache:
+        h, kv = h
+    x = x + h
+    y, aux = MOE.moe_block(cfg, pl["moe"], L.rms_norm(x, pl["ln2"], cfg.norm_eps),
+                           capacity_factor=moe_cf)
+    return x + y, kv, aux
+
+
+def _project_cross(cfg: ModelConfig, p, enc_out: torch.Tensor) -> L.KVCache:
+    """Encoder output (B, F, d) to one decoder layer's cross K/V (B, KV, F, hd)."""
+    B, F, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    k = L.linear(enc_out, p["wk"], p.get("bk")).reshape(B, F, KV, hd)
+    v = L.linear(enc_out, p["wv"], p.get("bv")).reshape(B, F, KV, hd)
+    return L.KVCache(k=k.transpose(1, 2), v=v.transpose(1, 2))
+
+
+def _audio(cfg, params, frames, x, positions, *, impl, write_cache, aux):
+    """The encoder over `frames` (not causal, RoPE on frame positions), then
+    the decoder over x: causal self attention, cross attention onto K/V
+    projected per layer from the encoder output, SwiGLU."""
+    dt = x.dtype
+    enc = frames.to(dt)
+    B, F, _ = enc.shape
+    enc_pos = torch.arange(F, device=enc.device)[None].expand(B, F)
+    for pl in params["encoder"]:
+        enc = enc + L.attention_block(cfg, pl["attn"],
+                                      L.rms_norm(enc, pl["ln1"], cfg.norm_eps),
+                                      enc_pos, causal=False, impl=impl)
+        enc = enc + L.swiglu(L.rms_norm(enc, pl["ln2"], cfg.norm_eps), pl["mlp"])
+    enc_out = L.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+    aux["enc_out"] = enc_out
+    kvs, crosses = [], []
+    for pl in params["layers"]:
+        h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
+                              positions, write_cache=write_cache, impl=impl)
+        if write_cache:
+            h, kv = h
+            kvs.append(kv)
+        x = x + h
+        cross = _project_cross(cfg, pl["xattn"], enc_out)
+        if write_cache:
+            crosses.append(cross)
+        x = x + L.attention_block(cfg, pl["xattn"],
+                                  L.rms_norm(x, pl["ln2"], cfg.norm_eps),
+                                  positions, cross_kv=cross, impl=impl)
+        x = x + L.swiglu(L.rms_norm(x, pl["ln3"], cfg.norm_eps), pl["mlp"])
+    if write_cache:
+        aux["kv"], aux["cross_kv"] = kvs, crosses
+    return x
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             impl: str = "auto", write_cache: bool = False,
-            sliding_window: Optional[int] = None
+            sliding_window: Optional[int] = None, moe_cf: Optional[float] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Teacher-forced full-sequence forward.  batch: tokens (B, S).
-    Returns (logits (B, S, V), aux); with write_cache aux holds per-layer
-    lists: "kv" (dense KVCache), "ssm" (SSMState) and "sh_kv" (hybrid
-    KVCache, one per shared-block use)."""
-    _require_ported(cfg)
+    """Teacher-forced full-sequence forward.  batch: tokens (B, S) [,
+    embeds (B, P, d) for vlm, prepended to the tokens][, frames (B, F, d)
+    for audio, the encoder's input].  Returns (logits (B, S, V), aux): moe
+    adds "lb_loss" and "dropped_frac" (means over layers), audio "enc_out";
+    with write_cache aux also holds per-layer lists: "kv" (KVCache over the
+    P + S positions), "ssm" (SSMState), "sh_kv" (hybrid, one per
+    shared-block use) and "cross_kv" (audio)."""
+    fam = cfg.family
     dt = _dtype(cfg)
     sw = cfg.sliding_window if sliding_window is None else sliding_window
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     x = params["embed"][tokens].to(dt)
+    n_prefix = 0
+    if fam == "vlm":
+        emb = batch["embeds"].to(dt)
+        x = torch.cat([emb, x], 1)
+        n_prefix = emb.shape[1]
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux: Dict[str, Any] = {}
     kvs, sts = [], []
-    if cfg.family == "dense":
+    if fam in ("dense", "vlm"):
         for pl in params["layers"]:
             x, kv = _dense_layer(cfg, pl, x, positions, sliding_window=sw,
                                  impl=impl, write_cache=write_cache)
             kvs.append(kv)
+    elif fam == "moe":
+        moe_aux = []
+        for pl in params["layers"]:
+            x, kv, a = _moe_layer(cfg, pl, x, positions, impl=impl,
+                                  write_cache=write_cache, moe_cf=moe_cf)
+            kvs.append(kv)
+            moe_aux.append(a)
+        for name in ("lb_loss", "dropped_frac"):
+            aux[name] = torch.stack([a[name] for a in moe_aux]).mean()
+    elif fam == "audio":
+        x = _audio(cfg, params, batch["frames"], x, positions, impl=impl,
+                   write_cache=write_cache, aux=aux)
     else:
-        every = cfg.attn_every if cfg.family == "hybrid" else 0
+        every = cfg.attn_every if fam == "hybrid" else 0
         for li, pl in enumerate(params["layers"]):
             x, st = _mamba_layer(cfg, pl, x, impl=impl, write_cache=write_cache)
             sts.append(st)
@@ -145,13 +230,13 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
                                       impl=impl, write_cache=write_cache)
                 kvs.append(kv)
     if write_cache:
-        if cfg.family == "dense":
+        if fam in ("dense", "vlm", "moe"):
             aux["kv"] = kvs
-        else:
+        elif fam in ("ssm", "hybrid"):
             aux["ssm"] = sts
-        if cfg.family == "hybrid":
+        if fam == "hybrid":
             aux["sh_kv"] = kvs
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, n_prefix:]
     logits = torch.matmul(x, params["lm_head"].to(dt))
     return _mask_padded_vocab(cfg, logits), aux
 
@@ -165,40 +250,52 @@ def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     return logits.masked_fill(pad, -1e30)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0,
                device="cuda") -> Dict[str, Any]:
-    _require_ported(cfg)
+    """An empty cache for `batch` sequences of up to `max_len` positions
+    (vlm: patch embeddings included) and, for audio, `enc_len` frames."""
+    fam = cfg.family
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {
         "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    kv_shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    if cfg.family == "dense":
-        cache["k"] = torch.zeros((cfg.num_layers,) + kv_shape, dtype=dt, device=device)
-        cache["v"] = torch.zeros((cfg.num_layers,) + kv_shape, dtype=dt, device=device)
-    else:
+
+    def kv(n, length):
+        return torch.zeros((n, batch, cfg.num_kv_heads, length, cfg.head_dim),
+                           dtype=dt, device=device)
+    if fam in ("dense", "vlm", "moe", "audio"):
+        cache["k"], cache["v"] = kv(cfg.num_layers, max_len), kv(cfg.num_layers, max_len)
+    if fam in ("ssm", "hybrid"):
         cache["ssm"] = M.init_ssm_state(cfg, cfg.num_layers, batch, dt, device)
-    if cfg.family == "hybrid":
+    if fam == "hybrid":
         ns = _segments(cfg)
-        cache["sh_k"] = torch.zeros((ns,) + kv_shape, dtype=dt, device=device)
-        cache["sh_v"] = torch.zeros((ns,) + kv_shape, dtype=dt, device=device)
+        cache["sh_k"], cache["sh_v"] = kv(ns, max_len), kv(ns, max_len)
+    if fam == "audio":
+        cache["cross_k"] = kv(cfg.num_layers, enc_len)
+        cache["cross_v"] = kv(cfg.num_layers, enc_len)
+        cache["cross_len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return cache
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             cache: Dict[str, Any], *, impl: str = "auto",
-            sliding_window: Optional[int] = None):
-    """Full-sequence prefill: fills the cache in place (the KV prefix, or
-    the SSM and conv states) and sets "len".  Returns (last-token logits
-    (B, V), cache)."""
+            sliding_window: Optional[int] = None, moe_cf: Optional[float] = None):
+    """Full-sequence prefill: fills the cache in place (the KV prefix over
+    the P + S positions, the SSM and conv states, the cross K/V) and sets
+    "len" (and "cross_len").  Returns (last-token logits (B, V), cache).
+    For audio, batch["frames"] is encoded and only BOS enters the decoder:
+    batch["tokens"] is then (B, 1)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    for name in ("k", "sh_k"):
-        if name in cache and S > cache[name].shape[3]:
-            raise ValueError(f"prefill of {S} tokens exceeds the cache's "
-                             f"{cache[name].shape[3]} (the ring buffer is "
-                             "not ported)")
+    if cfg.family == "vlm":
+        S += batch["embeds"].shape[1]
+    for name, n in (("k", S), ("sh_k", S),
+                    ("cross_k", batch["frames"].shape[1] if "cross_k" in cache else 0)):
+        if name in cache and n > cache[name].shape[3]:
+            raise ValueError(f"prefill of {n} positions exceeds the cache's "
+                             f"{cache[name].shape[3]} in {name!r} (the ring "
+                             "buffer is not ported)")
     logits, aux = forward(cfg, params, batch, impl=impl, write_cache=True,
-                          sliding_window=sliding_window)
+                          sliding_window=sliding_window, moe_cf=moe_cf)
     for li, kv in enumerate(aux.get("kv", [])):
         cache["k"][li, :, :, :S] = kv.k
         cache["v"][li, :, :, :S] = kv.v
@@ -208,6 +305,11 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     for si, kv in enumerate(aux.get("sh_kv", [])):
         cache["sh_k"][si, :, :, :S] = kv.k
         cache["sh_v"][si, :, :, :S] = kv.v
+    for li, kv in enumerate(aux.get("cross_kv", [])):
+        n = kv.k.shape[2]
+        cache["cross_k"][li, :, :, :n] = kv.k
+        cache["cross_v"][li, :, :, :n] = kv.v
+        cache["cross_len"].fill_(n)
     cache["len"] = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return logits[:, -1], cache
 
@@ -216,25 +318,41 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
                 token: torch.Tensor, *, impl: str = "auto"):
     """token (B,) int -> (logits (B, V), cache).  One serve step; the new
     token's K/V and the new SSM/conv states are written into the cache in
-    place, and cache["len"] advances by one."""
-    _require_ported(cfg)
+    place, and cache["len"] advances by one.  moe routes with the capacity
+    factor min(decode_capacity_factor, E)."""
+    fam = cfg.family
     dt = _dtype(cfg)
     x = params["embed"][token].to(dt)                        # (B, d)
     clen = cache["len"]
-    if cfg.family == "dense":
+    eps = cfg.norm_eps
+    if fam in ("dense", "vlm", "moe", "audio"):
         for li, pl in enumerate(params["layers"]):
             h, _ = L.decode_attention_block(
-                cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
+                cfg, pl["attn"], L.rms_norm(x, pl["ln1"], eps),
                 L.KVCache(cache["k"][li], cache["v"][li]), clen,
-                sliding_window=cfg.sliding_window, impl=impl)
+                sliding_window=0 if fam == "audio" else cfg.sliding_window,
+                impl=impl)
             x = x + h
-            x = x + L.swiglu(L.rms_norm(x, pl["ln2"], cfg.norm_eps), pl["mlp"])
+            if fam == "audio":
+                h, _ = L.decode_attention_block(
+                    cfg, pl["xattn"], L.rms_norm(x, pl["ln2"], eps),
+                    L.KVCache(cache["cross_k"][li], cache["cross_v"][li]), clen,
+                    cross=True, cross_len=cache["cross_len"], impl=impl)
+                x = x + h
+                x = x + L.swiglu(L.rms_norm(x, pl["ln3"], eps), pl["mlp"])
+            elif fam == "moe":
+                y, _ = MOE.moe_block(cfg, pl["moe"],
+                                     L.rms_norm(x, pl["ln2"], eps)[:, None],
+                                     capacity_factor=min(float(cfg.decode_capacity_factor),
+                                                         float(cfg.num_experts)))
+                x = x + y[:, 0]
+            else:
+                x = x + L.swiglu(L.rms_norm(x, pl["ln2"], eps), pl["mlp"])
     else:
-        every = cfg.attn_every if cfg.family == "hybrid" else 0
+        every = cfg.attn_every if fam == "hybrid" else 0
         conv, ssm = cache["ssm"]
         for li, pl in enumerate(params["layers"]):
-            h, st = M.mamba2_step(cfg, pl["mamba"],
-                                  L.rms_norm(x, pl["ln"], cfg.norm_eps),
+            h, st = M.mamba2_step(cfg, pl["mamba"], L.rms_norm(x, pl["ln"], eps),
                                   M.SSMState(conv[li], ssm[li]))
             conv[li].copy_(st.conv)
             ssm[li].copy_(st.ssm)
@@ -243,12 +361,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
                 si = (li + 1) // every - 1
                 ps = params["shared"]
                 h, _ = L.decode_attention_block(
-                    cfg, ps["attn"], L.rms_norm(x, ps["ln1"], cfg.norm_eps),
+                    cfg, ps["attn"], L.rms_norm(x, ps["ln1"], eps),
                     L.KVCache(cache["sh_k"][si], cache["sh_v"][si]), clen,
                     impl=impl)
                 x = x + h
-                x = x + L.swiglu(L.rms_norm(x, ps["ln2"], cfg.norm_eps), ps["mlp"])
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+                x = x + L.swiglu(L.rms_norm(x, ps["ln2"], eps), ps["mlp"])
+    x = L.rms_norm(x, params["final_norm"], eps)
     logits = _mask_padded_vocab(cfg, torch.matmul(x, params["lm_head"].to(dt)))
     cache["len"] = clen + 1
     return logits, cache

@@ -83,8 +83,9 @@ class ReplicaEngine:
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  device="cuda"):
         if cfg.family != "dense":
-            raise NotImplementedError("the engine serves the dense family "
-                                      "(other families: ROADMAP Queue A8)")
+            raise NotImplementedError("the engine serves the dense family; the "
+                                      "others run through the model API "
+                                      "(launch/quickstart.py)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_decode as fd_mod
-from repro_torch.kernels.checks import rel_err, ssd_check, ssd_edge_cases, ssd_inputs
+from repro_torch.kernels.checks import (cross_edge_checks, rel_err, ssd_check,
+                                        ssd_edge_cases, ssd_inputs)
 from repro_torch.kernels.flash_attention import flash_attention, torch_attention
 from repro_torch.kernels.flash_decode import flash_decode, split_plan, torch_decode
 from repro_torch.kernels.ssd_kernel import ssd_scan, torch_ssd_scan
@@ -137,9 +138,26 @@ def test_attention_edges_match_plain(cuda, dtype, tol, d, n_rep):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_edges_match_plain(cuda, dtype):
+    """`checks.cross_edge_checks`: B1 with one query row (the decoder's BOS
+    prefill) causal and across to 1024 encoder frames with ragged kv_len,
+    B1 unmasked over 1024 frames, and B2 over a full 1024-key cross cache,
+    at D 64 with 16 MHA heads; each to its plain version, repeats
+    bit-equal."""
+    before = flash_attention.launches, flash_decode.launches
+    out = cross_edge_checks(generator=torch.Generator(device=cuda).manual_seed(9),
+                            device=cuda, dtype=dtype)
+    assert len(out) == 5
+    assert flash_attention.launches == before[0] + 8
+    assert flash_decode.launches == before[1] + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("d,n_rep", [(64, 4), (80, 1), (128, 4), (128, 8)])
+@pytest.mark.parametrize("d,n_rep", [(64, 4), (80, 1), (128, 3), (128, 4), (128, 5),
+                                     (128, 8)])
 def test_decode_split_edges_match_plain(cuda, dtype, tol, d, n_rep):
     """B2's split key axis against `torch_decode`: cache_len 0, 1, less
     than one split, exactly a split boundary, one past it, and S; windows
@@ -303,3 +321,42 @@ def test_ssm_models_on_card_match_cpu(cuda, arch, layers):
     if cfg.family == "hybrid":
         assert flash_attention.launches > before[1]
         assert flash_decode.launches > before[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "seamless_m4t_large_v2",
+                                  "internvl2_76b"])
+def test_family_models_on_card_match_cpu(cuda, arch):
+    """Reduced f32 moe, audio and vlm models on the card (B1 and B2,
+    including the cross attention) against the CPU (plain versions):
+    forward logits, prefill and 4 decode steps to 1e-4, on the inputs
+    quickstart draws."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import quickstart
+    from repro_torch.models import model as mdl
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+    params = mdl.init_params(cfg, seed=0, device="cpu")
+    batch = quickstart.make_batch(cfg, 2, 70, seed=4)
+    runs = []
+    before = flash_attention.launches, flash_decode.launches
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        logits, _ = mdl.forward(cfg, p, b)
+        lg, cache = quickstart.start(cfg, p, b, 4)
+        steps = [lg]
+        for i in range(4):
+            lg, cache = mdl.decode_step(cfg, p, cache,
+                                        (batch["tokens"][:, -1].to(dev) + i) % cfg.vocab_size)
+            steps.append(lg)
+        runs.append([logits.cpu()] + [t.cpu() for t in steps]
+                    + [cache["k"].cpu()] + ([cache["cross_k"].cpu()]
+                                            if "cross_k" in cache else []))
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    per_pass = cfg.num_layers * (3 if cfg.family == "audio" else 1)
+    assert flash_attention.launches == before[0] + 2 * per_pass   # forward + prefill
+    assert flash_decode.launches == before[1] + 4 * (
+        2 * cfg.num_layers if cfg.family == "audio" else cfg.num_layers)

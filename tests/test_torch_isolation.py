@@ -27,7 +27,11 @@ COPIED = ["core/request.py", "core/simulator.py", "core/backend.py",
           "core/predictor.py", "core/metrics.py", "core/schedulers.py",
           "sp/planner.py", "configs/base.py", "configs/mistral_7b.py",
           "configs/qwen2_7b.py", "configs/llama3_8b.py",
-          "configs/mamba2_130m.py", "configs/zamba2_2_7b.py"]
+          "configs/mamba2_130m.py", "configs/zamba2_2_7b.py",
+          "configs/olmoe_1b_7b.py", "configs/llama4_maverick_400b_a17b.py",
+          "configs/seamless_m4t_large_v2.py", "configs/internvl2_76b.py",
+          "configs/phi3_14b.py", "configs/yi_34b.py", "configs/llama31_70b.py",
+          "configs/minitron_8b.py", "configs/phi4_mini_3_8b.py"]
 
 
 def _port_files():

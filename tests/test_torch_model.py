@@ -111,5 +111,5 @@ def test_init_params_shapes_and_other_families_raise():
     again = mdl.init_params(cfg, seed=0, device="cpu")
     assert torch.equal(p["layers"][1]["mlp"]["w_up"],
                        again["layers"][1]["mlp"]["w_up"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        mdl.init_params(dataclasses.replace(cfg, family="moe"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        mdl.init_params(dataclasses.replace(cfg, family="rnn"), device="cpu")
