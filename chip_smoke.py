@@ -36,10 +36,14 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                their tiles, splits and chunks, B3 also at a slow decay that
                carries the state across 17 chunks (a cut state passing and
                a dropped entering state must read above the limit), and
-               B3's f32 kernel to 2e-5, and the encoder-decoder's edges: B1
+               B3's f32 kernel to 2e-5, the encoder-decoder's edges: B1
                with one query row, causal and across to 1024 frames, B1
                unmasked over 1024 frames, B2 over a full 1024-key cross
-               cache (``edge_cases``, through ``kernels/checks.py``);
+               cache, and B1 and B2 in f32 at the shapes the ``claims``
+               phase gives them (4 q / 2 KV heads of 64, 128-token
+               context) to 2e-5, where the last key or 64 keys dropped
+               must read above the limit (``edge_cases``, through
+               ``kernels/checks.py``);
 3. engine    — full-width mistral_7b (random bf16 weights from a seed) on one
                ReplicaEngine: a preempted 1536-token prefill resumes bit for
                bit, and a prefix-cache hit runs the suffix prefill at
@@ -49,12 +53,29 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                count read around this run (the dense main path);
 5. profile   — torch.profiler over decode iterations at 8 slots: wall and
                device-busy time per iteration and the top kernels;
-6. ssm       — full-width mamba2_130m,
-7. hybrid    — full-width zamba2_2_7b,
-8. moe       — olmoe_1b_7b at full width and depth (64 experts, top 8),
-9. audio     — seamless_m4t_large_v2 at full width and depth (24 encoder
+6. claims    — the 26 engine specs of the smoke grid (1,378 requests, the
+               analytic clock) through ``experiments.run_sweep`` on the card,
+               over the reference's reduced f32 stack: every engine-side
+               claim passes, B1 and B2 launch, and two smoke_mini specs run
+               again on the CPU and on the card give the same summaries
+               (the same decisions) and the same greedy tokens;
+7. cluster   — ``launch/serve_cluster.py`` at the full width and depth of
+               mistral_7b in bf16: 2 + 1 engines with a 4096-token context,
+               the measured clock, 24 azure_default requests at 4x the
+               measured short capacity (the long runs 3,488 tokens and
+               claims both general engines) under pecsched
+               and fifo, each served with its target length of in-vocab
+               tokens, pecsched preempting the long at least once; serving
+               metrics, launches, and the measured seconds per prefill layer
+               beside the cost model's;
+8. overhead  — ``launch/engine_overhead.py`` at full width: context switch,
+               suspension state against the KV, KV migration;
+9. ssm       — full-width mamba2_130m,
+10. hybrid   — full-width zamba2_2_7b,
+11. moe      — olmoe_1b_7b at full width and depth (64 experts, top 8),
+12. audio    — seamless_m4t_large_v2 at full width and depth (24 encoder
                and 24 decoder layers), and
-10. vlm      — internvl2_76b at full width and 24 of its 80 layers (all 80
+13. vlm      — internvl2_76b at full width and 24 of its 80 layers (all 80
                do not fit one card in bf16), each with random bf16 weights
                from seed 0 through ``launch/quickstart.py``: prefill of 4 x
                2048 positions (vlm: 256 patch embeddings + 1792 tokens;
@@ -63,14 +84,14 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                and around the decode steps (each family's main path) and
                checked exactly, and a profile of 4 more decode steps and of
                one more prefill (device idle share, operations per step);
-11. invariant — the five models in f32 at full width (depth cut where
+14. invariant — the five models in f32 at full width (depth cut where
                ``INVARIANT_MODELS`` says): after prefill, decode_step's
                logits equal the last logits of a forward over the extended
                sequence.
 
 Then one JSON line with every kernel's numbers (launches summed over the
-serve, ssm, hybrid, moe, audio and vlm phases) and, last, the result line
-``{"ok": true, "device": {...}}``.  The script exits non-zero without a
+serve, claims, cluster, overhead, ssm, hybrid, moe, audio and vlm phases)
+and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
 from __future__ import annotations
@@ -87,6 +108,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 2e-2                      # bf16: atol = rtol
 REL_TOL = 5e-3                  # bf16 B1: ||got - want|| / ||want|| per (batch, head)
+#: claims: the share of requests whose greedy tokens are the same on the CPU
+#: and the card (a near tie between the top two logits may flip one argmax
+#: between devices, and then that request's later tokens)
+GREEDY_AGREEMENT = 0.95
+#: cluster: arrivals over the measured short capacity.  The long's prefill
+#: is bound by the card (32 layers of ~3.4 ms at 3,488 tokens) and a short's
+#: service by the host (decode iterations), so the arrival rate the
+#: calibration gives moves with the host's speed: at 4x the shorts behind
+#: the long arrive inside its prefill, at 1.2x they may come after it ends
+CLUSTER_UTILIZATION = 4.0
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 BF16_FLOPS = 989e12
 
@@ -278,8 +309,8 @@ def phase_kernels(torch, dev):
     # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80);
     # olmoe_1b_7b's prefill (MHA 16, D 128); seamless_m4t_large_v2's encoder
     # (unmasked over 1024 frames, MHA 16, D 64) and its decoder's BOS row
-    # across to those frames.  q is a transposed (B, S, H, D) view, as
-    # attention_block passes it.
+    # across to those frames; internvl2_76b's prefill (64 q / 8 KV heads).
+    # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
             ("fa_suffix_256_at_256", 1, 32, 8, 128, 256, 512, 256, 0, False, True),
@@ -290,7 +321,9 @@ def phase_kernels(torch, dev):
             ("fa_audio_enc_noncausal_1024_d64", 4, 16, 16, 64, 1024, 1024, 0, 0,
              False, False),
             ("fa_audio_cross_sq1_1024_d64", 4, 16, 16, 64, 1, 1024, 0, 0, False,
-             False)):
+             False),
+            ("fa_vlm_gqa8_causal_2048", 4, 64, 8, 128, 2048, 2048, 0, 0, False,
+             True)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kl = [sk, sk - 77] if ragged else [sk] * B
@@ -344,14 +377,16 @@ def phase_kernels(torch, dev):
         rows.setdefault("flash_attention", row)
     # flash decode: 8 slots with ragged cache lengths, with and without
     # window (mistral_7b), zamba2's shared block (MHA, D 80), olmoe_1b_7b's
-    # decode (4 x ~2048, MHA 16, D 128) and seamless_m4t_large_v2's cross
-    # attention over a full cache of 1024 frames (MHA 16, D 64)
+    # decode (4 x ~2048, MHA 16, D 128), seamless_m4t_large_v2's cross
+    # attention over a full cache of 1024 frames (MHA 16, D 64) and
+    # internvl2_76b's decode (8 query heads per KV head, 4 x ~2080)
     for name, B, S, H, KV, D, win, full in (
             ("fd_b8_s2048_ragged_win0", 8, 2048, 32, 8, 128, 0, False),
             ("fd_b8_s2048_ragged_win64", 8, 2048, 32, 8, 128, 64, False),
             ("fd_mha_d80_b8_s2048_ragged", 8, 2048, 32, 32, 80, 0, False),
             ("fd_olmoe_mha16_b4_s2088_ragged", 4, 2088, 16, 16, 128, 0, False),
-            ("fd_audio_cross_b4_s1024_d64", 4, 1024, 16, 16, 64, 0, True)):
+            ("fd_audio_cross_b4_s1024_d64", 4, 1024, 16, 16, 64, 0, True),
+            ("fd_vlm_rep8_b4_s2080_ragged", 4, 2080, 64, 8, 128, 0, False)):
         q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
         cl = torch.randint(1, S + 1, (B,), generator=g, device=dev,
                            dtype=torch.int32)
@@ -402,8 +437,10 @@ def _edge_cases(torch, dev, g, rn):
     split boundary, one past it and S, with windows across a boundary; and
     the encoder-decoder's edges (`checks.cross_edge_checks`): B1 with one
     query row, causal and across to 1024 frames, B1 unmasked over 1024, B2
-    over a full 1024-key cross cache."""
-    from repro_torch.kernels.checks import attention_check, cross_edge_checks, decode_check
+    over a full 1024-key cross cache; and B1 and B2 in f32 at the evaluation
+    path's engine shapes (`checks.engine_f32_checks`)."""
+    from repro_torch.kernels.checks import (attention_check, cross_edge_checks,
+                                            decode_check, engine_f32_checks)
     from repro_torch.kernels.flash_decode import split_plan
     out = []
     for name, B, H, KV, D, sq, sk, causal, win, qo, kvl in (
@@ -428,7 +465,10 @@ def _edge_cases(torch, dev, g, rn):
             name = f"fd_split_edges_d{D}_rep{H // KV}_win{win}"
             out.append(dict(decode_check(name, q, k, v, cl, sliding_window=win),
                             n_split=n_split, split_keys=chunk))
-    return out + cross_edge_checks(generator=g, device=dev)
+    out += cross_edge_checks(generator=g, device=dev)
+    # their own generator: the draws above and below stay as they were
+    return out + engine_f32_checks(
+        generator=torch.Generator(device=dev).manual_seed(16), device=dev)
 
 
 def _ssd_cases(torch, dev, g, cases, rows):
@@ -645,6 +685,155 @@ def phase_profile(torch, dev, cfg, params):
     _say("profile", what="decode_iteration, 8 slots x 256 tokens",
          **_profile_steps(torch, step, 5))
     del eng
+
+
+def phase_claims(torch, dev):
+    """The engine cells of the smoke grid (`experiments.smoke_grid`, all on
+    the analytic clock) on torch engines on the card, over the reference's
+    reduced f32 stack (2 layers, d_model 256, 4 q / 2 KV heads of 64): every
+    engine-side claim must evaluate and pass, and B1 and B2 must launch.
+    Two smoke_mini specs then run on the CPU and again on the card: their
+    summaries must equal the sweep's apart from the wall-clock fields (on
+    the analytic clock decisions do not depend on numerics, so this holds
+    the decisions, not the kernels), and at least GREEDY_AGREEMENT of their
+    requests must generate the same greedy tokens on both.  The kernels'
+    numerics at these shapes are held in the kernels phase
+    (`checks.engine_f32_checks`)."""
+    import repro_torch.experiments as ex
+    from repro_torch.experiments import runner
+
+    specs = [s for s in ex.smoke_grid() if s.backend == "engine"]
+    results, wall, counts = _run_counted(
+        torch, lambda: ex.run_sweep(specs, device=dev))
+    cres = [r for r in ex.evaluate_claims(ex.smoke_sweep_cells(results))
+            if r.backend == "engine"]
+    failed = [(r.cid, r.skipped or r.value) for r in cres
+              if r.skipped or not r.passed]
+    if failed:
+        raise AssertionError(f"claims: engine-side claims failed on the card: "
+                             f"{failed}")
+    launches = {n: counts[n] for n in ("flash_attention", "flash_decode")}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"claims: a kernel never ran: {launches}")
+    volatile = ("wall_s", "sched_time_s")
+    again = [s for s in specs
+             if s.scenario == "smoke_mini" and s.policy in ("pecsched", "fifo")]
+    agree = {}
+    for spec in again:
+        tokens = {}
+        for where in ("cpu", dev):
+            summary = ex.run_spec(spec, device=where)
+            diff = sorted(k for k in set(summary) | set(results[spec])
+                          if k not in volatile
+                          and summary.get(k) != results[spec].get(k))
+            if diff:
+                raise AssertionError(f"claims: {spec.key()} run on {where} "
+                                     f"differs from the card's sweep in {diff}")
+            backend = runner.engine_stack(spec.model, spec.engine_clock, where)[3]
+            tokens[str(where)] = {r: list(t) for r, t in backend.generated.items()}
+        cpu, card = tokens["cpu"], tokens[str(dev)]
+        if {r: len(t) for r, t in cpu.items()} != {r: len(t) for r, t in card.items()}:
+            raise AssertionError(f"claims: {spec.key()} generated other lengths "
+                                 "on the CPU and the card")
+        agree[spec.policy] = dict(
+            requests=len(cpu), tokens=sum(map(len, cpu.values())),
+            equal_requests=sum(cpu[r] == card[r] for r in cpu),
+            equal_tokens=sum(a == b for r in cpu for a, b in zip(cpu[r], card[r])))
+        if agree[spec.policy]["equal_requests"] < GREEDY_AGREEMENT * len(cpu):
+            raise AssertionError(f"claims: {spec.key()} greedy tokens on the CPU "
+                                 f"and the card: {agree[spec.policy]} (at least "
+                                 f"{GREEDY_AGREEMENT} of the requests equal)")
+    _say("claims", specs=len(specs),
+         requests=sum(s.n_requests for s in specs),
+         claims_passed=sum(r.passed for r in cres), claims_total=len(cres),
+         wall_s=wall, launches=counts,
+         cpu_summaries_equal=[s.policy for s in again],
+         cpu_card_greedy=agree, greedy_agreement_min=GREEDY_AGREEMENT)
+    return counts
+
+
+def phase_cluster(torch, dev):
+    """launch/serve_cluster.py at the full width and depth of mistral_7b in
+    bf16: 2 general engines + 1 decode engine with a 4096-token context,
+    the measured clock, the azure_default scenario (24 requests, 16 new
+    tokens each; a request's engine prompt is its cluster length over 64,
+    so the long runs 3,488 tokens) under pecsched and fifo, arriving at
+    CLUSTER_UTILIZATION times the measured short capacity; the prefill
+    target is fitted so the long claims both general engines.  Every
+    request completes with its target length of in-vocab tokens, and
+    pecsched preempts the long's prefill at least once.  Per policy: the
+    serving metrics and the kernels' launches; then the measured seconds
+    per prefill layer of the long beside the cost model's.  The summary's
+    TTFT and TPOT (``sim_`` keys) are not engine times: the policy stamps
+    them on the virtual clock with the cost model's price of the trace's
+    cluster-scale output lengths (the engines decode at most 16 of them),
+    so the engines' own time per output token is
+    `decode_ms_per_iteration`."""
+    from repro_torch.launch import serve_cluster
+
+    stack = serve_cluster.build(device=dev, max_new=16)
+    trace = serve_cluster.make_trace(stack, "azure_default", 24,
+                                     utilization=CLUSTER_UTILIZATION)
+    reqs = trace["requests"]
+    longs = [r for r in reqs if r.is_long]
+    totals = dict.fromkeys(_counters(), 0)
+    per_policy = {}
+    for policy in ("pecsched", "fifo"):
+        torch.cuda.reset_peak_memory_stats()
+        r, wall, counts = _run_counted(
+            torch, lambda: serve_cluster.run_policy(stack, reqs, policy))
+        if len(r["done"]) != len(reqs):
+            raise AssertionError(f"cluster: {policy} completed {len(r['done'])} "
+                                 f"of {len(reqs)} requests")
+        for rid, toks in r["generated"].items():
+            if len(toks) != r["target_new"][rid]:
+                raise AssertionError(f"cluster: {policy} request {rid} generated "
+                                     f"{len(toks)} of {r['target_new'][rid]}")
+            if not all(0 <= t < stack.cfg.vocab_size for t in toks):
+                raise AssertionError(f"cluster: {policy} request {rid} generated "
+                                     "a token outside the vocab")
+        if min(counts["flash_attention"], counts["flash_decode"]) == 0:
+            raise AssertionError(f"cluster: a kernel never ran: {counts}")
+        s = r["summary"]
+        if policy == "pecsched" and not s["preemptions"] > 0:
+            raise AssertionError("cluster: pecsched never preempted the long's "
+                                 "prefill")
+        per_policy[policy] = dict(
+            done=len(r["done"]), short_qd_mean_s=s["short_qd_mean"],
+            short_qd_p99_s=s["short_qd_pct"]["99"],
+            long_jct_mean_s=s["long_jct_mean"], preemptions=s["preemptions"],
+            sim_ttft_mean_s=s["ttft_mean"], sim_ttft_p99_s=s["ttft_pct"]["99"],
+            sim_tpot_mean_s=s["tpot_mean"],
+            decode_tokens=r["decode_tokens"],
+            decode_tokens_per_s=r["decode_tokens"] / r["decode_s"],
+            decode_tokens_per_iteration=r["decode_tokens"] / r["decode_iters"],
+            decode_ms_per_iteration=1e3 * r["decode_s"] / r["decode_iters"],
+            measured_s=r["measured_s"], wall_s=wall, launches=counts,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        for n in totals:
+            totals[n] += counts[n]
+    cfg = stack.cfg
+    _say("cluster", arch="mistral_7b", layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, engines="2+1", max_len=stack.backend.max_len,
+         clock="measured", scenario="azure_default", requests=len(reqs),
+         longs=len(longs), utilization=CLUSTER_UTILIZATION,
+         arrival_rps=trace["rps"], max_new=16,
+         prefill_target_s=stack.em.target_prefill_s,
+         long_claims=[stack.em.replicas_needed(r.input_len) for r in longs],
+         engine_prompt_tokens=sorted({stack.backend.prompt_len(r) for r in reqs}),
+         policies=per_policy,
+         prefill_layer=serve_cluster.layer_seconds(stack, reqs))
+    return totals
+
+
+def phase_overhead(torch, dev):
+    """launch/engine_overhead.py at full width (mistral_7b bf16, a long of
+    1536 tokens paused halfway for a 16-token short)."""
+    from repro_torch.launch import engine_overhead
+
+    out, _, counts = _run_counted(torch, lambda: engine_overhead.run(device=dev))
+    _say("overhead", launches=counts, **out)
+    return counts
 
 
 def _profile_steps(torch, step, n):
@@ -884,6 +1073,10 @@ def main() -> int:
     phase_profile(torch, dev, cfg, params)
     del params
     torch.cuda.empty_cache()
+    for phase in (phase_claims, phase_cluster, phase_overhead):
+        for name, n in phase(torch, dev).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
     for phase, arch, layers, cut in (
             ("ssm", "mamba2_130m", None, None),
             ("hybrid", "zamba2_2_7b", None, None),

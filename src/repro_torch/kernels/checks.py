@@ -54,12 +54,16 @@ def attention_inputs(b: int, h: int, kvh: int, d: int, sq: int, sk: int, *,
     return rn(sq, h), rn(sk, kvh), rn(sk, kvh)
 
 
-def attention_check(name: str, q, k, v, **kw) -> dict:
+def attention_check(name: str, q, k, v, *, fault_keys: Tuple[int, ...] = (),
+                    **kw) -> dict:
     """B1 on the card against `torch_attention` in f32 on the same inputs:
     elementwise (TOL in bf16, F32_TOL in f32), in relative norm per (batch,
     head) (B1_REL_TOL, F32_TOL), rows with no visible key 0 with LSE -inf
     where the plain version has them, and two identical calls bit-equal.
-    Returns the readings; raises AssertionError."""
+    `fault_keys`: for each n, the plain version with n keys of every
+    sequence dropped from its end (the last key, a key tile) must read
+    above the relative limit.  Returns the readings; raises
+    AssertionError."""
     bf16 = q.dtype == torch.bfloat16
     tol, rel_tol = (TOL, B1_REL_TOL) if bf16 else (F32_TOL, F32_TOL)
     kw = dict(kw, return_lse=True)
@@ -82,14 +86,28 @@ def attention_check(name: str, q, k, v, **kw) -> dict:
     again, again_lse = flash_attention(q, k, v, **kw)
     if not (torch.equal(again, got) and torch.equal(again_lse, lse)):
         raise AssertionError(f"{name}: two identical calls differ")
-    return dict(case=name, empty_rows=int(empty.sum()), max_abs_err=err, tol=tol,
-                rel_err=rel, rel_tol=rel_tol, bit_equal_repeat=True)
+    out = dict(case=name, empty_rows=int(empty.sum()), max_abs_err=err, tol=tol,
+               rel_err=rel, rel_tol=rel_tol, bit_equal_repeat=True)
+    kv_len = kw.get("kv_len")
+    if kv_len is None:
+        kv_len = torch.full((q.shape[0],), k.shape[2], device=q.device)
+    for n in fault_keys:
+        fault, _ = torch_attention(q.float(), k.float(), v.float(), **dict(
+            kw, kv_len=(kv_len - n).clamp_min(0)))
+        reading = out[f"fault_drop{n}_rel_err"] = rel_err(fault.to(q.dtype), want)
+        if not reading > rel_tol:
+            raise AssertionError(f"{name}: {n} dropped keys read {reading}, "
+                                 f"inside the limit {rel_tol}")
+    return out
 
 
-def decode_check(name: str, q, k, v, cache_len, *, sliding_window: int = 0) -> dict:
+def decode_check(name: str, q, k, v, cache_len, *, sliding_window: int = 0,
+                 fault_keys: Tuple[int, ...] = ()) -> dict:
     """B2 on the card against `torch_decode` (TOL in bf16, F32_TOL in f32),
-    0 where cache_len is 0, two identical calls bit-equal.  Returns the
-    readings; raises AssertionError."""
+    0 where cache_len is 0, two identical calls bit-equal.  `fault_keys`:
+    for each n, the plain version with n keys of every sequence dropped
+    from its end (the last key, a split) must fail the same elementwise
+    check.  Returns the readings; raises AssertionError."""
     tol = TOL if q.dtype == torch.bfloat16 else F32_TOL
     got = flash_decode(q, k, v, cache_len, sliding_window=sliding_window)
     empty = cache_len == 0
@@ -106,8 +124,17 @@ def decode_check(name: str, q, k, v, cache_len, *, sliding_window: int = 0) -> d
     if not torch.equal(flash_decode(q, k, v, cache_len, sliding_window=sliding_window),
                        got):
         raise AssertionError(f"{name}: two identical calls differ")
-    return dict(case=name, cache_len=cache_len.tolist(), max_abs_err=err, tol=tol,
-                bit_equal_repeat=True)
+    out = dict(case=name, cache_len=cache_len.tolist(), max_abs_err=err, tol=tol,
+               bit_equal_repeat=True)
+    for n in fault_keys:
+        fault = torch_decode(q, k, v, (cache_len - n).clamp_min(0),
+                             sliding_window=sliding_window)[~empty].float()
+        reading = out[f"fault_drop{n}_max_abs_err"] = \
+            (fault - want_f).abs().max().item()
+        if torch.allclose(fault, want_f, atol=tol, rtol=tol):
+            raise AssertionError(f"{name}: {n} dropped keys pass the check "
+                                 f"(max |err| {reading})")
+    return out
 
 
 def cross_edge_checks(*, generator: torch.Generator, device,
@@ -129,6 +156,60 @@ def cross_edge_checks(*, generator: torch.Generator, device,
             for _ in range(2))
     out.append(decode_check("fd_cross_full_1024", q, k, v,
                             torch.full((b,), s, dtype=torch.int32, device=device)))
+    return out
+
+
+#: B1 and B2 in f32 at the shapes the evaluation path's engine cells give
+#: them (`experiments.runner.engine_stack`: the reduced f32 mistral_7b, 4
+#: query / 2 KV heads of 64, a 128-token context): B1 causal at batch 1
+#: over the prompt buckets (4-96 tokens) and prefix-cache suffixes at
+#: q_offset 16 and 32, B2 at 8 slots over a 128-key cache.  Also a full
+#: context, a length off the 64-key tile and a ragged kv_len.  Each case
+#: has two faults that must read above its limit: the last key dropped,
+#: and 64 keys dropped (one key tile of B1's f32 kernel, one of B2's two
+#: splits at S 128 on an H100's 132 SMs).
+ENGINE_F32_HEADS = (4, 2, 64)          # query heads, KV heads, head dim
+ENGINE_F32_FAULT_KEYS = (1, 64)
+#: (name, b, sq, sk, q_offset, kv_len)
+ENGINE_F32_ATTENTION = [
+    ("fa_f32_engine_4", 1, 4, 4, 0, None),
+    ("fa_f32_engine_24", 1, 24, 24, 0, None),
+    ("fa_f32_engine_96", 1, 96, 96, 0, None),
+    ("fa_f32_engine_128", 1, 128, 128, 0, None),
+    ("fa_f32_engine_suffix_8_at_16", 1, 8, 24, 16, None),
+    ("fa_f32_engine_suffix_16_at_32", 1, 16, 48, 32, None),
+    ("fa_f32_engine_ragged_100", 2, 100, 100, 0, (100, 63)),
+]
+#: (name, cache_len of the 8 slots)
+ENGINE_F32_DECODE = [
+    ("fd_f32_engine_split_edges", (1, 5, 63, 64, 65, 99, 127, 128)),
+    ("fd_f32_engine_ragged", (1, 7, 13, 19, 33, 50, 66, 98)),
+]
+
+
+def engine_f32_checks(*, generator: torch.Generator, device) -> List[dict]:
+    """B1 on `ENGINE_F32_ATTENTION` and B2 on `ENGINE_F32_DECODE`, in f32
+    with `attention_check` / `decode_check`, each with its dropped-keys
+    faults.  Returns the readings; raises AssertionError."""
+    h, kvh, d = ENGINE_F32_HEADS
+    out = []
+    for name, b, sq, sk, qo, kvl in ENGINE_F32_ATTENTION:
+        q, k, v = attention_inputs(b, h, kvh, d, sq, sk, generator=generator,
+                                   device=device, dtype=torch.float32)
+        kv_len = (torch.tensor(kvl, dtype=torch.int32, device=device)
+                  if kvl else None)
+        out.append(attention_check(name, q, k, v, causal=True, q_offset=qo,
+                                   kv_len=kv_len,
+                                   fault_keys=ENGINE_F32_FAULT_KEYS))
+    s = 128
+    for name, lens in ENGINE_F32_DECODE:
+        b = len(lens)
+        q = torch.randn((b, h, d), generator=generator, device=device)
+        k, v = (torch.randn((b, kvh, s, d), generator=generator, device=device)
+                for _ in range(2))
+        out.append(decode_check(name, q, k, v,
+                                torch.tensor(lens, dtype=torch.int32, device=device),
+                                fault_keys=ENGINE_F32_FAULT_KEYS))
     return out
 
 

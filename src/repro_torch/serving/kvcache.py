@@ -354,6 +354,11 @@ class PagedKVCache:
         busy = self.n_blocks - len(self.free) - len(self.cached)
         return busy / self.n_blocks
 
+    def written_tokens(self) -> int:
+        """Token positions actually written across live tables (per table:
+        a block shared by two tables holds tokens for both)."""
+        return sum(self.lengths.values())
+
     def reserved_tokens(self) -> int:
         """Capacity held by reserve() headroom beyond each sequence's
         written blocks — allocated on purpose, NOT fragmentation."""

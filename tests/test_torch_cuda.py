@@ -154,6 +154,22 @@ def test_cross_attention_edges_match_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+def test_engine_f32_shapes_match_plain(cuda):
+    """`checks.engine_f32_checks`: B1 and B2 in f32 at the evaluation path's
+    engine shapes (4 query / 2 KV heads of 64, a 128-token context, 8 decode
+    slots) to 2e-5, repeats bit-equal, each dropped-keys fault above the
+    limit."""
+    from repro_torch.kernels.checks import (ENGINE_F32_ATTENTION, ENGINE_F32_DECODE,
+                                            engine_f32_checks)
+    before = flash_attention.launches, flash_decode.launches
+    out = engine_f32_checks(generator=torch.Generator(device=cuda).manual_seed(16),
+                            device=cuda)
+    assert len(out) == len(ENGINE_F32_ATTENTION) + len(ENGINE_F32_DECODE)
+    assert flash_attention.launches == before[0] + 2 * len(ENGINE_F32_ATTENTION)
+    assert flash_decode.launches == before[1] + 2 * len(ENGINE_F32_DECODE)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d,n_rep", [(64, 4), (80, 1), (128, 3), (128, 4), (128, 5),

@@ -168,3 +168,32 @@ def test_minicluster_parity_with_jax(model, policy, monkeypatch):
     assert gen == {r.rid: r.generated for r in jmc.done}
     if policy == "pecsched":
         assert tmc.metrics()["preemptions"] > 0
+
+
+def test_first_token_in_padded_vocab_matches_reference():
+    """A vocab of 500 is padded to 512.  The reference's engine takes the
+    prefill's argmax over all 512 logits, padding included (its
+    `_finalize_fn` does not mask), and the port gives the same first token
+    on a prompt whose argmax falls in the padding."""
+    jcfg = dataclasses.replace(
+        j_reduced_config(j_get_config("mistral_7b"), layers=2),
+        dtype="float32", vocab_size=500)
+    cfg = dataclasses.replace(
+        reduced_config(get_config("mistral_7b"), layers=2),
+        dtype="float32", vocab_size=500)
+    assert cfg.padded_vocab == 512
+    jparams = j_init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    eng = ReplicaEngine(cfg, params, max_len=64, device="cpu")
+    rng = np.random.default_rng(5)
+    for _ in range(400):
+        toks = rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
+        first = int(eng.prefill_logits(_prefill(eng, 0, toks,
+                                                torch.from_numpy))[0].argmax())
+        if first >= cfg.vocab_size:
+            break
+    assert first >= cfg.vocab_size, "no prompt's argmax fell in the padding"
+    jeng = JaxEngine(jcfg, jparams, max_len=64)
+    want = int(jnp.argmax(jeng.prefill_logits(_prefill(jeng, 0, toks,
+                                                       jnp.asarray))[0]))
+    assert first == want

@@ -31,7 +31,12 @@ COPIED = ["core/request.py", "core/simulator.py", "core/backend.py",
           "configs/olmoe_1b_7b.py", "configs/llama4_maverick_400b_a17b.py",
           "configs/seamless_m4t_large_v2.py", "configs/internvl2_76b.py",
           "configs/phi3_14b.py", "configs/yi_34b.py", "configs/llama31_70b.py",
-          "configs/minitron_8b.py", "configs/phi4_mini_3_8b.py"]
+          "configs/minitron_8b.py", "configs/phi4_mini_3_8b.py",
+          "core/__init__.py", "core/arrivals.py", "core/trace.py",
+          "core/scenarios.py", "core/workload.py", "core/fleet.py",
+          "experiments/__init__.py", "experiments/spec.py",
+          "experiments/claims.py", "experiments/report.py",
+          "experiments/robustness.py"]
 
 
 def _port_files():
@@ -94,9 +99,13 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["engine", "backend", "cluster", "init",
-                                   "serve_cli", "quickstart_cli"])
+                                   "serve_cli", "quickstart_cli",
+                                   "serve_cluster_cli", "engine_overhead_cli",
+                                   "engine_stack", "run_spec"])
 def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
-    from repro_torch.launch import quickstart, serve
+    from repro_torch.experiments import runner
+    from repro_torch.experiments.spec import ExperimentSpec
+    from repro_torch.launch import engine_overhead, quickstart, serve, serve_cluster
     from repro_torch.models import init_params
     from repro_torch.serving import EngineBackend, MiniCluster, ReplicaEngine
     cfg, params = _tiny()
@@ -108,6 +117,11 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
         "serve_cli": serve.main,
         "quickstart_cli": lambda: quickstart.main(["--arch", "zamba2_2_7b",
                                                    "--layers", "2"]),
+        "serve_cluster_cli": lambda: serve_cluster.main(["--layers", "2"]),
+        "engine_overhead_cli": lambda: engine_overhead.main(["--layers", "2"]),
+        "engine_stack": lambda: runner.engine_stack("mistral_7b", "analytic"),
+        "run_spec": lambda: runner.run_spec(ExperimentSpec(
+            policy="fifo", scenario="smoke_mini", backend="engine")),
     }
     monkeypatch.setattr(sys, "argv", ["serve", "--layers", "2"])
     with pytest.raises(RuntimeError):

@@ -220,11 +220,39 @@ def test_split_decode_empty_sequence_gives_zero():
     (1, 8, 2048, 132, (32, 64)),       # one sequence: 256 blocks of 64 keys
     (4, 32, 2048, 132, (5, 448)),      # zamba2's block at batch 4: 640 blocks
     (8, 8, 256, 132, (4, 64)),         # a short cache: splits of one 64-key step
+    (8, 2, 128, 132, (2, 64)),         # the engine cells' decode: two splits
 ])
 def test_split_plan(b, kvh, s, sms, want):
     n_split, chunk = split_plan(b, kvh, s, sms)
     assert (n_split, chunk) == want
     assert chunk % 64 == 0 and n_split * chunk >= s > (n_split - 1) * chunk
+
+
+def test_engine_f32_cases_are_the_engine_shapes_and_see_their_faults():
+    """`checks.engine_f32_checks`, which chip_smoke.py runs on the card, holds
+    B1 and B2 at the evaluation path's engine shapes (the runner's reduced
+    f32 stack: 4 query / 2 KV heads of 64, a 128-token context, 8 decode
+    slots).  On the CPU the wrappers run their plain versions, so the
+    kernel readings are 0, and every dropped-keys fault (the last key, a
+    64-key tile or split) must read above the limit of its check."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.experiments import runner
+    from repro_torch.kernels import checks
+    cfg = reduced_config(get_config("mistral_7b"), layers=runner.ENGINE_LAYERS)
+    assert checks.ENGINE_F32_HEADS == (cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.head_dim)
+    assert all(sk <= runner.ENGINE_MAX_LEN
+               for _, _, _, sk, _, _ in checks.ENGINE_F32_ATTENTION)
+    assert all(len(lens) == 8 and max(lens) <= runner.ENGINE_MAX_LEN
+               for _, lens in checks.ENGINE_F32_DECODE)
+    out = checks.engine_f32_checks(generator=torch.Generator().manual_seed(16),
+                                   device="cpu")
+    assert len(out) == len(checks.ENGINE_F32_ATTENTION) + len(checks.ENGINE_F32_DECODE)
+    for r in out:
+        assert r["max_abs_err"] == 0.0 and r["tol"] == checks.F32_TOL
+        faults = {k: v for k, v in r.items() if k.startswith("fault_")}
+        assert len(faults) == len(checks.ENGINE_F32_FAULT_KEYS)
+        assert min(faults.values()) > checks.F32_TOL
 
 
 def _meta(*shape, dtype=torch.bfloat16):

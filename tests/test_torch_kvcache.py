@@ -110,6 +110,7 @@ def test_pool_matches_jax_on_random_ops(seed, n_blocks):
         assert tp.utilization() == jp.utilization()
         assert tp.fragmentation() == jp.fragmentation()
         assert tp.reserved_tokens() == jp.reserved_tokens()
+        assert tp.written_tokens() == jp.written_tokens()
     assert tp.stats["cow_forks"] > 0 and tp.stats["blocks_shared"] > 0
     for b in pins:
         jp._release_block(b)
@@ -137,3 +138,28 @@ def test_lru_eviction_matches_jax():
         _assert_same(jp, tp)
     assert tp.lookup_prefix([1, 2, 3, 4]).n_tokens == 0, "oldest evicted"
     assert tp.lookup_prefix([5, 6, 7, 8]).n_tokens == 4, "newest retained"
+
+
+def test_split_accounting_matches_jax():
+    """The accounting split after the same admit and reserve on both pools:
+    written tokens (live payload), reserved tokens (reserve() headroom),
+    utilization (physical blocks) and fragmentation (partial-tail slack
+    only) equal the reference's, with the reference's own values."""
+    n_blocks = 16
+    jp = JaxPool.create(L, n_blocks, KV, BS, HD, dtype=jnp.float32)
+    tp = PagedKVCache.create(L, n_blocks, KV, BS, HD, dtype=torch.float32,
+                             device="cpu")
+    kv = np.random.default_rng(3).normal(size=(2, L, KV, 10, HD)).astype(
+        np.float32)
+    jp.admit(0, jnp.asarray(kv[0]), jnp.asarray(kv[1]), tokens=list(range(10)))
+    tp.admit(0, torch.from_numpy(kv[0]), torch.from_numpy(kv[1]),
+             tokens=list(range(10)))
+
+    def split(pc):
+        return (pc.written_tokens(), pc.reserved_tokens(), pc.utilization(),
+                pc.fragmentation())
+    assert split(tp) == split(jp) == (10, 0, 3 / n_blocks, 1 - 10 / 12)
+    jp.reserve(0, 6 * BS)
+    tp.reserve(0, 6 * BS)
+    assert split(tp) == split(jp) == (10, 3 * BS, 6 / n_blocks, 1 - 10 / 12)
+    _assert_same(jp, tp)
