@@ -87,16 +87,30 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
 14. invariant — the five models in f32 at full width (depth cut where
                ``INVARIANT_MODELS`` says): after prefill, decode_step's
                logits equal the last logits of a forward over the extended
-               sequence.
+               sequence;
+15. train    — ``launch/train.py --full`` at the full width of mistral_7b in
+               bf16 (32 layers if they fit), batch 1 x 2048, remat, 5 AdamW
+               steps on one batch: finite losses that fall, no hand kernel
+               launched, seconds per step, tokens/s, peak memory, mfu; the
+               kernels refusing autograd; one reduced f32 train step of
+               each family on the card equal to the CPU's;
+16. train_lm — ``launch/train_lm.py`` at its ~100M parameters, 200 steps:
+               the loss falls by 0.3, the checkpoint reloads equal;
+17. ring     — llama3_8b's serve step at long_500k, full width and depth in
+               bf16: 12,288 tokens prefilled into a ring of 8192, 32 ring
+               decode steps, launches exact; in f32 at 4 layers the ring's
+               logits equal a windowed forward's (1e-3 / 5e-3).
 
 Then one JSON line with every kernel's numbers (launches summed over the
-serve, claims, cluster, overhead, ssm, hybrid, moe, audio and vlm phases)
+serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm and ring
+phases; the train phases launch none)
 and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -107,7 +121,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL = 2e-2                      # bf16: atol = rtol
-REL_TOL = 5e-3                  # bf16 B1: ||got - want|| / ||want|| per (batch, head)
+REL_TOL = 5e-3                  # bf16 B1: ||got - want|| / ||want|| per (batch, head,
+Q_ROWS = 1024                   # ... block of Q_ROWS queries)
 #: claims: the share of requests whose greedy tokens are the same on the CPU
 #: and the card (a near tie between the top two logits may flip one argmax
 #: between devices, and then that request's later tokens)
@@ -118,6 +133,8 @@ GREEDY_AGREEMENT = 0.95
 #: calibration gives moves with the host's speed: at 4x the shorts behind
 #: the long arrive inside its prefill, at 1.2x they may come after it ends
 CLUSTER_UTILIZATION = 4.0
+#: ring: the prompt prefilled into llama3_8b's ring of 8192 (one and a half windows)
+RING_PROMPT = 12288
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 BF16_FLOPS = 989e12
 
@@ -297,11 +314,17 @@ def phase_kernels(torch, dev):
                                  f"version, max |err| {err} (tol {TOL})")
         return err
 
+    def rel_rows(got, want):
+        """rel_err per (batch, head, block of Q_ROWS queries): a fault in a
+        few rows of a long sequence reads in its own block."""
+        return max(rel_err(a, b) for a, b in zip(got.split(Q_ROWS, 2),
+                                                 want.split(Q_ROWS, 2)))
+
     def check_rel(name, got, want):
-        rel = rel_err(got, want)
+        rel = rel_rows(got, want)
         if not rel < REL_TOL:
             raise AssertionError(f"{name}: ||got - want|| / ||want|| {rel} in a "
-                                 f"(batch, head) (limit {REL_TOL})")
+                                 f"(batch, head, {Q_ROWS} queries) (limit {REL_TOL})")
         return rel
 
     cases, rows = [], {}
@@ -309,7 +332,8 @@ def phase_kernels(torch, dev):
     # (mistral_7b: H 32, KV 8, D 128); zamba2's shared block (MHA, D 80);
     # olmoe_1b_7b's prefill (MHA 16, D 128); seamless_m4t_large_v2's encoder
     # (unmasked over 1024 frames, MHA 16, D 64) and its decoder's BOS row
-    # across to those frames; internvl2_76b's prefill (64 q / 8 KV heads).
+    # across to those frames; internvl2_76b's prefill (64 q / 8 KV heads);
+    # llama3_8b's ring prefill at long_500k (12,288 tokens, window 8192).
     # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
@@ -323,7 +347,9 @@ def phase_kernels(torch, dev):
             ("fa_audio_cross_sq1_1024_d64", 4, 16, 16, 64, 1, 1024, 0, 0, False,
              False),
             ("fa_vlm_gqa8_causal_2048", 4, 64, 8, 128, 2048, 2048, 0, 0, False,
-             True)):
+             True),
+            ("fa_ring_llama3_w8192_12288", 1, 32, 8, 128, RING_PROMPT, RING_PROMPT,
+             0, 8192, False, True)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kl = [sk, sk - 77] if ragged else [sk] * B
@@ -335,14 +361,20 @@ def phase_kernels(torch, dev):
         want = torch_attention(q.float(), k.float(), v.float(), **kw)
         err = check(name, got, want.to(q.dtype))
         rel = check_rel(name, got, want)
-        # the reading of a fault: the last 128-key tile of each sequence
-        # dropped (the plain version with kv_len 128 shorter)
-        fault = rel_err(torch_attention(q.float(), k.float(), v.float(), **dict(
-            kw, kv_len=torch.tensor(kl, dtype=torch.int32, device=dev) - 128)).to(
-                q.dtype), want)
-        if not fault > REL_TOL:
-            raise AssertionError(f"{name}: a dropped key tile reads {fault}, "
-                                 f"inside the limit {REL_TOL}")
+        # the readings of faults: the last 128-key tile of each sequence
+        # dropped (the plain version with kv_len 128 shorter) and, where the
+        # window spans more than a tile, the window one tile shorter
+        faults = {"dropped_key_tile": dict(
+            kv_len=torch.tensor(kl, dtype=torch.int32, device=dev) - 128)}
+        if win > 128:
+            faults["window_short_by_a_tile"] = dict(sliding_window=win - 128)
+        fault = {}
+        for what, over in faults.items():
+            fault[what] = rel_rows(torch_attention(
+                q.float(), k.float(), v.float(), **dict(kw, **over)).to(q.dtype), want)
+            if not fault[what] > REL_TOL:
+                raise AssertionError(f"{name}: fault {what} reads {fault[what]}, "
+                                     f"inside the limit {REL_TOL}")
         del want
         if not torch.equal(got, flash_attention(q, k, v, **kw)):
             raise AssertionError(f"{name}: two identical calls differ")
@@ -378,15 +410,17 @@ def phase_kernels(torch, dev):
     # flash decode: 8 slots with ragged cache lengths, with and without
     # window (mistral_7b), zamba2's shared block (MHA, D 80), olmoe_1b_7b's
     # decode (4 x ~2048, MHA 16, D 128), seamless_m4t_large_v2's cross
-    # attention over a full cache of 1024 frames (MHA 16, D 64) and
-    # internvl2_76b's decode (8 query heads per KV head, 4 x ~2080)
+    # attention over a full cache of 1024 frames (MHA 16, D 64),
+    # internvl2_76b's decode (8 query heads per KV head, 4 x ~2080) and
+    # llama3_8b's ring decode at long_500k (one sequence, a full ring of 8192)
     for name, B, S, H, KV, D, win, full in (
             ("fd_b8_s2048_ragged_win0", 8, 2048, 32, 8, 128, 0, False),
             ("fd_b8_s2048_ragged_win64", 8, 2048, 32, 8, 128, 64, False),
             ("fd_mha_d80_b8_s2048_ragged", 8, 2048, 32, 32, 80, 0, False),
             ("fd_olmoe_mha16_b4_s2088_ragged", 4, 2088, 16, 16, 128, 0, False),
             ("fd_audio_cross_b4_s1024_d64", 4, 1024, 16, 16, 64, 0, True),
-            ("fd_vlm_rep8_b4_s2080_ragged", 4, 2080, 64, 8, 128, 0, False)):
+            ("fd_vlm_rep8_b4_s2080_ragged", 4, 2080, 64, 8, 128, 0, False),
+            ("fd_ring_llama3_b1_s8192_full", 1, 8192, 32, 8, 128, 0, True)):
         q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
         cl = torch.randint(1, S + 1, (B,), generator=g, device=dev,
                            dtype=torch.int32)
@@ -1024,6 +1058,252 @@ def phase_invariant(torch, dev):
          tol_prefill=1e-3, tol_decode=5e-3, **errs)
 
 
+def _tree_to(tree, dev):
+    """A copy of the tree on `dev` (a copy on the CPU too: the train step
+    updates its params in place)."""
+    from repro_torch.models.model import param_leaves, tree_like
+    return tree_like(tree, [t.to(dev, copy=True) for t in param_leaves(tree)])
+
+
+def _params_close(got, want, lr=3e-4):
+    """(max |got - want|, elements off): params after one AdamW step from
+    equal weights, held to rtol = atol = TRAIN_TOL but for at most 1e-4 of
+    a leaf's elements (one at least), each within 2 x lr: where a
+    gradient is ~0, its rounding on either device decides the sign of
+    m̂ / sqrt(v̂) ~ ±1, and so an update of ±lr."""
+    import torch
+    from repro_torch.models.model import param_leaves
+    worst, off_total = 0.0, 0
+    for g, w in zip(param_leaves(got), param_leaves(want)):
+        g, w = g.detach().cpu().float(), w.detach().cpu().float()
+        diff = (g - w).abs()
+        off = int((~torch.isclose(g, w, rtol=TRAIN_TOL, atol=TRAIN_TOL)).sum())
+        if off > max(1, w.numel() // 10_000) or float(diff.max()) > 2 * lr:
+            raise AssertionError(f"train: {off} of {w.numel()} params off by up "
+                                 f"to {float(diff.max())}")
+        worst, off_total = max(worst, float(diff.max())), off_total + off
+    return worst, off_total
+
+
+#: card against CPU: one reduced f32 train step (TF32 off on the card)
+TRAIN_TOL = 1e-4
+TRAIN_FAMILIES = ("qwen2_7b", "olmoe_1b_7b", "mamba2_130m", "zamba2_2_7b",
+                  "seamless_m4t_large_v2", "internvl2_76b")
+
+
+def phase_train(torch, dev):
+    """launch/train.py --full at the full width and depth of mistral_7b in
+    bf16 (32 layers; out of memory fails the phase), batch 1 x 2048 tokens,
+    remat, 5 AdamW steps on one repeated batch: every loss
+    and grad_norm finite, the last loss below the first, and no hand
+    kernel launched (the train step runs the plain attention, as the
+    reference trains with "xla").  Seconds per step (median of steps 2-5),
+    tokens/s, peak memory and mfu (launch/train.py's `step_flops` over the
+    step time and 989e12).  Then: ops.* with impl="auto" on CUDA inputs
+    under autograd raise; and one build_train_step step of a reduced f32
+    config of each family equals the same step on the CPU (loss, grad_norm
+    and params to TRAIN_TOL; `_params_close`)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import init_params
+    from repro_torch.training import adamw_init
+
+    t_phase = time.perf_counter()
+    argv = ["--arch", "mistral_7b", "--full", "--batch", "1", "--seq", "2048",
+            "--steps", "5", "--same-batch", "--device", str(dev)]
+    out, _, counts = _run_counted(torch, lambda: train.main(argv))
+    if out["layers"] != get_config("mistral_7b").num_layers:
+        raise AssertionError(f"train: ran {out['layers']} layers, not the full depth")
+    losses, norms = out["losses"], out["grad_norms"]
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"train: a loss or grad_norm is not finite: {out}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"train: a hand kernel ran in a train step: {counts}")
+    # where a step's time goes: one more step under the profiler
+    cfg = dataclasses.replace(get_config("mistral_7b"), num_layers=out["layers"])
+    step = steps.build_train_step(cfg)
+    batch = train.make_batch(cfg, 1, 2048, np.random.default_rng(0), dev)
+    state = {"params": out.pop("params_tree"), "opt": out.pop("opt")}
+
+    def one_step():
+        state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
+    prof = _profile_steps(torch, one_step, 1)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the hand kernels refuse autograd on the card as on the CPU
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((1, 4, 64, 64), generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    x = torch.randn((1, 64, 2, 64), generator=g, device=dev, dtype=torch.bfloat16)
+    bc = torch.randn((1, 64, 16), generator=g, device=dev, dtype=torch.bfloat16)
+    dt = torch.rand((1, 64, 2), generator=g, device=dev)
+    a, d = -torch.rand(2, generator=g, device=dev), torch.ones(2, device=dev)
+    refused = []
+    for name, fn, wrt in (
+            ("attention", lambda: ops.attention(q, k, v), (q,)),
+            ("decode_attention", lambda: ops.decode_attention(
+                q[:, :, 0], k, v, torch.full((1,), 64, device=dev)), (k,)),
+            ("ssd_scan", lambda: ops.ssd_scan(x, dt, a, bc, bc, d), (x,))):
+        for t in wrt:
+            t.requires_grad_(True)
+        try:
+            fn()
+        except RuntimeError as e:
+            if 'impl="torch"' not in str(e):
+                raise
+            refused.append(name)
+        for t in wrt:
+            t.requires_grad_(False)
+    if len(refused) != 3:
+        raise AssertionError(f"train: impl='auto' ran under autograd: {refused}")
+
+    # one reduced f32 step per family, the card against the CPU
+    parity = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+        cpu_params = init_params(cfg, seed=0, device="cpu")
+        batch = train.make_batch(cfg, 2, 16, np.random.default_rng(1), "cpu")
+        res = {}
+        for where in ("cpu", dev):
+            p = _tree_to(cpu_params, where)
+            step = steps.build_train_step(cfg)
+            p, _, info = step(p, adamw_init(p), _tree_to(batch, where))
+            res[str(where)] = (p, float(info["loss"]), float(info["grad_norm"]))
+        (p_cpu, loss_cpu, norm_cpu), (p_card, loss_card, norm_card) = (
+            res["cpu"], res[str(dev)])
+        for what, c_, g_ in (("loss", loss_cpu, loss_card),
+                             ("grad_norm", norm_cpu, norm_card)):
+            if not abs(g_ - c_) <= TRAIN_TOL * abs(c_):
+                raise AssertionError(f"train: {arch} {what} card {g_} cpu {c_}")
+        worst, off = _params_close(p_card, p_cpu)
+        parity[arch] = dict(loss=loss_card,
+                            loss_rel_err=abs(loss_card - loss_cpu) / abs(loss_cpu),
+                            grad_norm_rel_err=abs(norm_card - norm_cpu) / abs(norm_cpu),
+                            params_max_abs_err=worst, params_outside_tol=off)
+    out.pop("losses")
+    _say("train", **out, losses=losses, launches=counts, step_profile=prof, autograd_refused=refused,
+         card_vs_cpu=parity, tol=TRAIN_TOL,
+         phase_s=time.perf_counter() - t_phase)
+
+
+def phase_train_lm(torch, dev):
+    """launch/train_lm.py at its full size (~100M parameters, f32, 200
+    steps of batch 8 x 256 synthetic tokens): the loss falls by at least
+    0.3 (the script's own assertion) and the checkpoint reloads equal."""
+    from repro_torch.launch import train_lm
+
+    t0 = time.perf_counter()
+    out, _, counts = _run_counted(torch, lambda: train_lm.main(["--device", str(dev)]))
+    if not (out["loss_drop"] >= train_lm.MIN_DROP and out["checkpoint_equal"]):
+        raise AssertionError(f"train_lm: {out}")
+    if any(counts.values()):
+        raise AssertionError(f"train_lm: a hand kernel ran in a train step: {counts}")
+    _say("train_lm", **out, steps_per_s=out["steps"] / out["wall_s"],
+         tokens_per_s=out["steps"] * out["batch"] * out["seq"] / out["wall_s"],
+         launches=counts, phase_s=time.perf_counter() - t0)
+
+
+#: ring: the f32 invariant's depth (the bf16 run keeps all 32 layers)
+RING_F32_LAYERS = 4
+
+
+def phase_ring(torch, dev):
+    """The serve step of llama3_8b (8192-token window) at long_500k: full
+    width and depth in bf16, a prefill of RING_PROMPT tokens into a ring of
+    8192 (B1 once per layer) and 32 greedy ring decode steps (B2 once per
+    layer per step), the launches checked exactly, finite logits, in-vocab
+    tokens.  Then the ring in f32 at RING_F32_LAYERS layers through the
+    kernels (B1 f32 in the prefill, B2 f32 over the ring): the prefill's
+    last logits equal a windowed forward's on the plain attention
+    (impl="torch", 1e-3) and 4 ring decode steps' equal that forward's over
+    the extended sequence (5e-3), the `invariant` phase's limits.  The bf16
+    B1 and B2 calls at this shape are held against their plain versions in
+    the kernel table (fa_ring_llama3_w8192_12288, fd_ring_llama3_b1_s8192_full)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import forward, init_cache, init_params
+
+    t_phase = time.perf_counter()
+    shape = INPUT_SHAPES["long_500k"]
+    cfg = get_config("llama3_8b")
+    max_len, _ = steps.cache_lengths(cfg, shape)
+    if not (steps.ring_buffer(cfg, shape) and max_len == cfg.sliding_window):
+        raise AssertionError(f"ring: long_500k does not ring llama3_8b ({max_len})")
+    prefill_step = steps.build_prefill_step(cfg, shape)
+    serve_step = steps.build_serve_step(cfg, shape)
+    toks = torch.randint(0, cfg.vocab_size, (1, RING_PROMPT),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    params = init_params(cfg, seed=0, device=dev)
+    cache = init_cache(cfg, 1, max_len, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (lg, cache), prefill_s, pre = _run_counted(
+        torch, lambda: prefill_step(params, {"tokens": toks}, cache))
+    N = 32
+
+    def decode():
+        out, finite, last = [], True, lg
+        for _ in range(N):
+            out.append(last.argmax(-1))
+            last, _ = serve_step(params, cache, out[-1])
+            finite &= bool(torch.isfinite(last).all())
+        return out, finite
+    (gen, finite), decode_s, dec = _run_counted(torch, decode)
+    if not (finite and bool(torch.isfinite(lg).all())):
+        raise AssertionError("ring: a logit is not finite")
+    if not all(0 <= int(t) < cfg.vocab_size for t in gen):
+        raise AssertionError("ring: a generated token is out of the vocab")
+    for name, (per_prefill, per_step) in _expected_launches(cfg).items():
+        _expect("ring", f"{name} per prefill", pre[name], per_prefill)
+        _expect("ring", f"{name} over {N} ring decode steps", dec[name], per_step * N)
+    if int(cache["len"][0]) != RING_PROMPT + N:
+        raise AssertionError(f"ring: cache length {cache['len'].tolist()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache, lg
+    torch.cuda.empty_cache()
+
+    # f32 at a cut depth: the ring against a windowed forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=RING_F32_LAYERS)
+    params = init_params(cfg32, seed=0, device=dev)
+    prefill_step = steps.build_prefill_step(cfg32, shape)
+    serve_step = steps.build_serve_step(cfg32, shape)
+    lg, cache = prefill_step(params, {"tokens": toks},
+                             init_cache(cfg32, 1, max_len, device=dev))
+    first, seq, outs = lg, toks, []
+    for _ in range(4):
+        seq = torch.cat([seq, lg.argmax(-1)[:, None]], 1)
+        lg, cache = serve_step(params, cache, seq[:, -1])
+        outs.append(lg)
+    with torch.no_grad():
+        full, _ = forward(cfg32, params, {"tokens": seq}, impl="torch")
+    errs = {}
+    for what, got, want, tol in (
+            ("prefill", first, full[:, RING_PROMPT - 1], 1e-3),
+            ("decode", torch.stack(outs, 1), full[:, RING_PROMPT:], 5e-3)):
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise AssertionError(f"ring: f32 {what} logits differ from a windowed "
+                                 f"plain forward by {err} (tol {tol})")
+        errs[f"f32_{what}_max_abs_err"] = err
+    del params, cache, full
+    torch.cuda.empty_cache()
+    _say("ring", arch="llama3_8b", layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, shape="long_500k", window=cfg.sliding_window,
+         ring_len=max_len, prompt_tokens=RING_PROMPT, prefill_s=prefill_s,
+         prefill_tokens_per_s=RING_PROMPT / prefill_s, decode_steps=N,
+         decode_ms_per_step=1e3 * decode_s / N, launches_prefill=pre,
+         launches_decode=dec, logits_finite=True, max_memory_allocated_gb=peak_gb,
+         f32_layers=RING_F32_LAYERS, f32_decode_steps=4, tol_prefill=1e-3,
+         tol_decode=5e-3, **errs, phase_s=time.perf_counter() - t_phase)
+    return {n: pre[n] + dec[n] for n in pre}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1088,6 +1368,13 @@ def main() -> int:
             launches[name] += n
         torch.cuda.empty_cache()
     phase_invariant(torch, dev)
+    torch.cuda.empty_cache()
+    phase_train(torch, dev)
+    torch.cuda.empty_cache()
+    phase_train_lm(torch, dev)
+    torch.cuda.empty_cache()
+    for name, n in phase_ring(torch, dev).items():
+        launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:85"),

@@ -98,6 +98,20 @@ def raw_stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index or 0)
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when autograd would record through a hand kernel: the kernels
+    write fresh outputs and record no backward (the reference's Pallas
+    kernels have none either), so a gradient through them would be cut
+    silently.  Checked before the device dispatch, so the CPU path refuses
+    what the card would."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the hand CUDA kernels have no backward pass (nor do "
+            "the reference's Pallas kernels); differentiate through the "
+            "plain PyTorch version with impl=\"torch\"")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launcher returned a non-zero ``cudaError_t``."""
     if err != 0:

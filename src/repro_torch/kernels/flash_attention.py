@@ -17,11 +17,46 @@ import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128)
+
+
+def _q_column(qb: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+              eff_len: torch.Tensor, q0: int, *, causal: bool,
+              sliding_window: int, q_offset: int, kv_block: int, scale: float):
+    """One q-block's online softmax over every kv block: (out, lse) in f32."""
+    dev = qb.device
+    qpos = q0 + torch.arange(qb.shape[2], device=dev) + q_offset
+    m = torch.full(qb.shape[:3], float("-inf"), device=dev)
+    l = torch.zeros(qb.shape[:3], device=dev)
+    acc = torch.zeros(qb.shape, device=dev)
+    for k0 in range(0, kf.shape[2], kv_block):
+        kb, vb = kf[:, :, k0:k0 + kv_block], vf[:, :, k0:k0 + kv_block]
+        kpos = k0 + torch.arange(kb.shape[2], device=dev)
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
+        mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=dev)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if sliding_window > 0:
+            mask &= qpos[:, None] - kpos[None, :] < sliding_window
+        s = s.masked_fill(~mask[None, None], float("-inf"))
+        valid = kpos[None, :] < eff_len[:, None]                 # (B, bk)
+        s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])                     # 0 where masked
+        corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), float("-inf"))
+    return out, lse
 
 
 def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -30,7 +65,12 @@ def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_block: int = 1024, kv_block: int = 1024,
                     scale: Optional[float] = None, return_lse: bool = False):
     """GQA attention with O(block^2) live memory.  q (B,H,Sq,D); k, v
-    (B,KV,Sk,D).  return_lse: also return the f32 row log-sum-exp (B,H,Sq)."""
+    (B,KV,Sk,D).  return_lse: also return the f32 row log-sum-exp (B,H,Sq).
+
+    Under autograd each q-block column runs under a checkpoint, as the
+    reference's ``jax.checkpoint`` of ``do_q_block``: the backward
+    recomputes a column's probabilities instead of keeping every
+    (q_block, kv_block) tile of every head."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     n_rep = h // kvh
@@ -41,37 +81,22 @@ def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vf = v.float().repeat_interleave(n_rep, 1) if n_rep > 1 else v.float()
     eff_len = (torch.full((b,), sk, device=dev) if kv_len is None
                else kv_len.to(dev))
-    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    kw = dict(causal=causal, sliding_window=sliding_window, q_offset=q_offset,
+              kv_block=kv_block, scale=scale)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs, lses = [], []
     for q0 in range(0, sq, q_block):
-        qb = qf[:, :, q0:q0 + q_block]
-        qpos = q0 + torch.arange(qb.shape[2], device=dev) + q_offset
-        m = torch.full(qb.shape[:3], float("-inf"), device=dev)
-        l = torch.zeros(qb.shape[:3], device=dev)
-        acc = torch.zeros(qb.shape, device=dev)
-        for k0 in range(0, sk, kv_block):
-            kb, vb = kf[:, :, k0:k0 + kv_block], vf[:, :, k0:k0 + kv_block]
-            kpos = k0 + torch.arange(kb.shape[2], device=dev)
-            s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
-            mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
-                              device=dev)
-            if causal:
-                mask &= qpos[:, None] >= kpos[None, :]
-            if sliding_window > 0:
-                mask &= qpos[:, None] - kpos[None, :] < sliding_window
-            s = s.masked_fill(~mask[None, None], float("-inf"))
-            valid = kpos[None, :] < eff_len[:, None]                 # (B, bk)
-            s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-            m_new = torch.maximum(m, s.amax(-1))
-            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
-            p = torch.exp(s - m_safe[..., None])                     # 0 where masked
-            corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
-            m = m_new
-        out[:, :, q0:q0 + q_block] = acc / l.clamp_min(1e-30)[..., None]
-        lse[:, :, q0:q0 + q_block] = torch.where(
-            l > 0, m + torch.log(l.clamp_min(1e-30)), float("-inf"))
+        args = (qf[:, :, q0:q0 + q_block], kf, vf, eff_len, q0)
+        o, lse = (checkpoint(_q_column, *args, use_reentrant=False, **kw) if remat
+                  else _q_column(*args, **kw))
+        outs.append(o)
+        lses.append(lse)
+    if not outs:                                   # Sq = 0
+        out = q.new_zeros((b, h, 0, d), dtype=torch.float32)
+        lse = q.new_zeros((b, h, 0), dtype=torch.float32)
+    else:
+        out, lse = torch.cat(outs, 2), torch.cat(lses, 2)
     out = out.to(q.dtype)
     return (out, lse) if return_lse else out
 
@@ -111,7 +136,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None, return_lse: bool = False):
     """q (B,H,Sq,D); k, v (B,KV,Sk,D); returns (B,H,Sq,D) in q's dtype
     (and the f32 LSE (B,H,Sq) with return_lse).  CUDA tensors go to the
-    hand kernel, CPU tensors to `torch_attention`."""
+    hand kernel, CPU tensors to `torch_attention`; under autograd it raises
+    (the kernel has no backward: use `torch_attention`)."""
+    _build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return torch_attention(q, k, v, causal=causal,
                                sliding_window=sliding_window,

@@ -123,7 +123,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,H,D); k, v (B,KV,S,D); cache_len (B,) int; returns (B,H,D) in
     q's dtype.  CUDA tensors go to the hand kernel, CPU tensors to
     `torch_decode`.  The kernel reads keys [cache_len - window, cache_len)
-    only; a sequence with cache_len 0 yields 0."""
+    only; a sequence with cache_len 0 yields 0.  Under autograd it raises
+    (the kernel has no backward: use `torch_decode`)."""
+    _build.refuse_autograd("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return torch_decode(q, k, v, cache_len, sliding_window=sliding_window)
     b, h, d = q.shape

@@ -3,10 +3,13 @@
 ``impl``:
   "auto"  — the hand CUDA kernel for CUDA tensors; the plain version for CPU
             tensors (the wrappers decide from the tensor's device, and a CUDA
-            tensor never falls back)
+            tensor never falls back).  The kernels have no backward, as the
+            reference's Pallas kernels have none: under autograd, with an
+            input that requires grad, "auto" raises on either device
   "torch" — the plain version: chunked online-softmax attention, the twin of
             the reference's ``ops.xla_attention`` / ``_decode_xla_window``;
-            the chunked SSD, the twin of ``_ssd_chunked_xla``
+            the chunked SSD, the twin of ``_ssd_chunked_xla``.  The training
+            path asks for it by name, as the reference trains with "xla"
   "ref"   — the naive oracle (small shapes only): full-materialisation
             attention, the sequential SSD scan
 """

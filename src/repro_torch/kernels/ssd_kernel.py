@@ -216,7 +216,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     The kernels tile the sequence in their own chunk whatever `chunk` says
     (the chunk is a tiling of one and the same sum: 64 tokens in f32,
     `chunk_len` in bf16); x, B and C may be strided views, read at their
-    own strides.  A call counts one launch, whatever kernels it runs."""
+    own strides.  A call counts one launch, whatever kernels it runs.
+    Under autograd it raises (the kernels have no backward: use
+    `torch_ssd_scan`)."""
+    _build.refuse_autograd("ssd_scan", x, dt, A, B, C, D, init_state)
     if x.device.type == "cpu":
         return torch_ssd_scan(x, dt, A, B, C, D, chunk=chunk,
                               init_state=init_state, return_state=return_state)

@@ -1,2 +1,2 @@
 from repro_torch.models.model import (decode_step, forward, init_cache,
-                                      init_params, prefill)
+                                      init_params, loss_fn, param_count, prefill)

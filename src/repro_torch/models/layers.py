@@ -99,7 +99,7 @@ def attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                            x: torch.Tensor, cache: KVCache,
                            cache_len: torch.Tensor, *, sliding_window: int = 0,
-                           cross: bool = False,
+                           ring_buffer: bool = False, cross: bool = False,
                            cross_len: Optional[torch.Tensor] = None,
                            impl: str = "auto"):
     """One-token decode.  x (B, d); cache k/v (B, KV, S_max, hd); cache_len
@@ -108,8 +108,10 @@ def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     The new token's K/V is written IN PLACE into ``cache`` at each
     sequence's own position (an index write, where the reference rewrites
     the whole cache through a one-hot mask), so the returned cache is the
-    same storage as the one passed in.  (The reference's ring-buffer
-    long-context mode is not ported: no serving path uses it.)
+    same storage as the one passed in.
+    ring_buffer: the sliding-window long-context mode — write at
+    cache_len % S_max and attend over the min(cache_len + 1, S_max) keys the
+    ring holds, with no window (the ring is the window).
     cross: attend to a fixed cross cache of ``cross_len`` (B,) keys: no
     write, no RoPE.
     """
@@ -123,11 +125,17 @@ def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     v = linear(x, p["wv"], p.get("bv")).reshape(B, KV, hd)
     q = rope(q[:, None], cache_len[:, None], cfg.rope_theta)[:, 0]   # pos = len
     k = rope(k[:, None], cache_len[:, None], cfg.rope_theta)[:, 0]
+    S_max = cache.k.shape[2]
+    pos = cache_len % S_max if ring_buffer else cache_len
     rows = torch.arange(B, device=x.device)
-    cache.k[rows, :, cache_len] = k.to(cache.k.dtype)
-    cache.v[rows, :, cache_len] = v.to(cache.v.dtype)
-    o = ops.decode_attention(q, cache.k, cache.v, cache_len + 1,
-                             sliding_window=sliding_window, impl=impl)
+    cache.k[rows, :, pos] = k.to(cache.k.dtype)
+    cache.v[rows, :, pos] = v.to(cache.v.dtype)
+    if ring_buffer:
+        eff_len, window = torch.clamp(cache_len + 1, max=S_max), 0
+    else:
+        eff_len, window = cache_len + 1, sliding_window
+    o = ops.decode_attention(q, cache.k, cache.v, eff_len,
+                             sliding_window=window, impl=impl)
     return linear(o.reshape(B, H * hd), p["wo"]), cache
 
 

@@ -19,15 +19,24 @@ Cache (dict), the reference's layout:
   cross_k, cross_v (L, B, KV, F, hd)    audio cross attention (fixed)
   cross_len   (B,) int32
 `prefill` and `decode_step` update these tensors in place (the reference
-returns new arrays), so the cache returned is the storage passed in.  The
-reference's ring-buffer mode is not ported: a prompt (or frame sequence)
-longer than the cache raises.
+returns new arrays), so the cache returned is the storage passed in.  A
+prefill longer than a cache keeps its most recent S_max positions, token t
+at slot t % S_max: the sliding-window ring buffer that
+`decode_step(ring_buffer=True)` continues.
+
+Training: `loss_fn` (next-token cross entropy, chunked over the sequence)
+and `forward(remat=True)`, which runs each layer body (hybrid: each
+segment) under an activation checkpoint where the reference puts
+``jax.checkpoint``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -93,6 +102,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return p
 
 
+def _remat(fn, remat: bool):
+    """fn, or fn under an activation checkpoint: the backward recomputes the
+    body's activations from its inputs (the reference's jax.checkpoint)."""
+    return functools.partial(checkpoint, fn, use_reentrant=False) if remat else fn
+
+
 def _dense_layer(cfg, pl, x, positions, *, sliding_window, impl, write_cache,
                  attn_fn=None):
     h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
@@ -121,6 +136,17 @@ def _mamba_layer(cfg, pl, x, *, impl, write_cache):
     return x + h, st
 
 
+def _hybrid_segment(cfg, pls, ps, x, positions, *, impl, write_cache):
+    """`attn_every` Mamba2 layers, then the shared block: one segment, the
+    reference's unit of remat."""
+    sts = []
+    for pl in pls:
+        x, st = _mamba_layer(cfg, pl, x, impl=impl, write_cache=write_cache)
+        sts.append(st)
+    x, kv = _shared_block(cfg, ps, x, positions, impl=impl, write_cache=write_cache)
+    return x, sts, kv
+
+
 def _moe_layer(cfg, pl, x, positions, *, impl, write_cache, moe_cf=None):
     h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
                           positions, write_cache=write_cache, impl=impl)
@@ -142,43 +168,54 @@ def _project_cross(cfg: ModelConfig, p, enc_out: torch.Tensor) -> L.KVCache:
     return L.KVCache(k=k.transpose(1, 2), v=v.transpose(1, 2))
 
 
-def _audio(cfg, params, frames, x, positions, *, impl, write_cache, aux):
+def _encoder_layer(cfg, pl, enc, enc_pos, *, impl):
+    enc = enc + L.attention_block(cfg, pl["attn"],
+                                  L.rms_norm(enc, pl["ln1"], cfg.norm_eps),
+                                  enc_pos, causal=False, impl=impl)
+    return enc + L.swiglu(L.rms_norm(enc, pl["ln2"], cfg.norm_eps), pl["mlp"])
+
+
+def _decoder_layer(cfg, pl, x, positions, enc_out, *, impl, write_cache):
+    """Causal self attention, cross attention onto K/V projected from the
+    encoder output, SwiGLU.  Returns (x, self KV or None, cross KV)."""
+    h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
+                          positions, write_cache=write_cache, impl=impl)
+    kv = None
+    if write_cache:
+        h, kv = h
+    x = x + h
+    cross = _project_cross(cfg, pl["xattn"], enc_out)
+    x = x + L.attention_block(cfg, pl["xattn"], L.rms_norm(x, pl["ln2"], cfg.norm_eps),
+                              positions, cross_kv=cross, impl=impl)
+    x = x + L.swiglu(L.rms_norm(x, pl["ln3"], cfg.norm_eps), pl["mlp"])
+    return x, kv, cross
+
+
+def _audio(cfg, params, frames, x, positions, *, impl, write_cache, remat, aux):
     """The encoder over `frames` (not causal, RoPE on frame positions), then
-    the decoder over x: causal self attention, cross attention onto K/V
-    projected per layer from the encoder output, SwiGLU."""
-    dt = x.dtype
-    enc = frames.to(dt)
+    the decoder over x."""
+    enc = frames.to(x.dtype)
     B, F, _ = enc.shape
     enc_pos = torch.arange(F, device=enc.device)[None].expand(B, F)
+    enc_fn = _remat(_encoder_layer, remat)
     for pl in params["encoder"]:
-        enc = enc + L.attention_block(cfg, pl["attn"],
-                                      L.rms_norm(enc, pl["ln1"], cfg.norm_eps),
-                                      enc_pos, causal=False, impl=impl)
-        enc = enc + L.swiglu(L.rms_norm(enc, pl["ln2"], cfg.norm_eps), pl["mlp"])
+        enc = enc_fn(cfg, pl, enc, enc_pos, impl=impl)
     enc_out = L.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
     aux["enc_out"] = enc_out
+    dec_fn = _remat(_decoder_layer, remat)
     kvs, crosses = [], []
     for pl in params["layers"]:
-        h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
-                              positions, write_cache=write_cache, impl=impl)
-        if write_cache:
-            h, kv = h
-            kvs.append(kv)
-        x = x + h
-        cross = _project_cross(cfg, pl["xattn"], enc_out)
-        if write_cache:
-            crosses.append(cross)
-        x = x + L.attention_block(cfg, pl["xattn"],
-                                  L.rms_norm(x, pl["ln2"], cfg.norm_eps),
-                                  positions, cross_kv=cross, impl=impl)
-        x = x + L.swiglu(L.rms_norm(x, pl["ln3"], cfg.norm_eps), pl["mlp"])
+        x, kv, cross = dec_fn(cfg, pl, x, positions, enc_out, impl=impl,
+                              write_cache=write_cache)
+        kvs.append(kv)
+        crosses.append(cross)
     if write_cache:
         aux["kv"], aux["cross_kv"] = kvs, crosses
     return x
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
-            impl: str = "auto", write_cache: bool = False,
+            impl: str = "auto", remat: bool = False, write_cache: bool = False,
             sliding_window: Optional[int] = None, moe_cf: Optional[float] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced full-sequence forward.  batch: tokens (B, S) [,
@@ -187,7 +224,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     adds "lb_loss" and "dropped_frac" (means over layers), audio "enc_out";
     with write_cache aux also holds per-layer lists: "kv" (KVCache over the
     P + S positions), "ssm" (SSMState), "sh_kv" (hybrid, one per
-    shared-block use) and "cross_kv" (audio)."""
+    shared-block use) and "cross_kv" (audio).  remat: each layer body (the
+    hybrid: each segment; audio: each encoder and decoder layer) runs under
+    an activation checkpoint."""
     fam = cfg.family
     dt = _dtype(cfg)
     sw = cfg.sliding_window if sliding_window is None else sliding_window
@@ -204,31 +243,38 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     aux: Dict[str, Any] = {}
     kvs, sts = [], []
     if fam in ("dense", "vlm"):
+        layer = _remat(_dense_layer, remat)
         for pl in params["layers"]:
-            x, kv = _dense_layer(cfg, pl, x, positions, sliding_window=sw,
-                                 impl=impl, write_cache=write_cache)
+            x, kv = layer(cfg, pl, x, positions, sliding_window=sw, impl=impl,
+                          write_cache=write_cache)
             kvs.append(kv)
     elif fam == "moe":
+        layer = _remat(_moe_layer, remat)
         moe_aux = []
         for pl in params["layers"]:
-            x, kv, a = _moe_layer(cfg, pl, x, positions, impl=impl,
-                                  write_cache=write_cache, moe_cf=moe_cf)
+            x, kv, a = layer(cfg, pl, x, positions, impl=impl,
+                             write_cache=write_cache, moe_cf=moe_cf)
             kvs.append(kv)
             moe_aux.append(a)
         for name in ("lb_loss", "dropped_frac"):
             aux[name] = torch.stack([a[name] for a in moe_aux]).mean()
     elif fam == "audio":
         x = _audio(cfg, params, batch["frames"], x, positions, impl=impl,
-                   write_cache=write_cache, aux=aux)
+                   write_cache=write_cache, remat=remat, aux=aux)
+    elif fam == "hybrid":
+        every = cfg.attn_every
+        segment = _remat(_hybrid_segment, remat)
+        for si in range(_segments(cfg)):
+            x, seg_sts, kv = segment(cfg, params["layers"][si * every:(si + 1) * every],
+                                     params["shared"], x, positions, impl=impl,
+                                     write_cache=write_cache)
+            sts += seg_sts
+            kvs.append(kv)
     else:
-        every = cfg.attn_every if fam == "hybrid" else 0
-        for li, pl in enumerate(params["layers"]):
-            x, st = _mamba_layer(cfg, pl, x, impl=impl, write_cache=write_cache)
+        layer = _remat(_mamba_layer, remat)
+        for pl in params["layers"]:
+            x, st = layer(cfg, pl, x, impl=impl, write_cache=write_cache)
             sts.append(st)
-            if every and (li + 1) % every == 0:
-                x, kv = _shared_block(cfg, params["shared"], x, positions,
-                                      impl=impl, write_cache=write_cache)
-                kvs.append(kv)
     if write_cache:
         if fam in ("dense", "vlm", "moe"):
             aux["kv"] = kvs
@@ -239,6 +285,70 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, n_prefix:]
     logits = torch.matmul(x, params["lm_head"].to(dt))
     return _mask_padded_vocab(cfg, logits), aux
+
+
+def _chunk_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """Summed f32 negative log-likelihood of the labels >= 0, and their count."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * valid).sum(), valid.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
+            impl: str = "auto", remat: bool = False, loss_chunk: int = 512):
+    """Mean next-token cross entropy over the labels >= 0 (default: the
+    tokens shifted left, the last position -1), + 0.01 x the load-balance
+    loss for moe.  The f32 log-softmax runs over chunks of the largest
+    divisor of S at or below `loss_chunk` positions, each under a checkpoint,
+    so the backward never holds the whole (B, S, V) in f32.  Returns (loss,
+    aux) with aux["ce_loss"] (the loss, as the reference sets it).  Training
+    asks for impl="torch": the hand kernels have no backward."""
+    logits, aux = forward(cfg, params, batch, impl=impl, remat=remat)
+    tokens = batch["tokens"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = F.pad(tokens[:, 1:], (0, 1), value=-1)
+    S = logits.shape[1]
+    ck = min(loss_chunk, S)
+    while S % ck:
+        ck -= 1
+    nll = _remat(_chunk_nll, torch.is_grad_enabled() and logits.requires_grad)
+    sums, counts = zip(*(nll(logits[:, i:i + ck], labels[:, i:i + ck])
+                         for i in range(0, S, ck)))
+    loss = torch.stack(sums).sum() / torch.stack(counts).sum().clamp_min(1)
+    if "lb_loss" in aux:
+        loss = loss + 0.01 * aux["lb_loss"]
+    aux["ce_loss"] = loss
+    return loss, aux
+
+
+def param_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a params-shaped tree, depth first in key order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in param_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in param_leaves(v)]
+    return [tree]
+
+
+def tree_like(tree, leaves):
+    """`tree`'s structure over `leaves`, taken in `param_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+    return build(tree)
+
+
+def param_count(params: Params) -> int:
+    """Elements over every leaf of the tree."""
+    return sum(t.numel() for t in param_leaves(params))
 
 
 def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -276,50 +386,65 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0,
     return cache
 
 
+def _write_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst (B, KV, S_max, hd) <- src (B, KV, S, hd) from position 0.  Past
+    S_max, the sliding-window ring buffer: the most recent S_max positions,
+    rolled so that token t sits at slot t % S_max (decode writes at
+    cache_len % S_max)."""
+    S_max, S = dst.shape[2], src.shape[2]
+    if S <= S_max:
+        dst[:, :, :S] = src
+    else:
+        dst.copy_(torch.roll(src[:, :, S - S_max:], S % S_max, dims=2))
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             cache: Dict[str, Any], *, impl: str = "auto",
             sliding_window: Optional[int] = None, moe_cf: Optional[float] = None):
     """Full-sequence prefill: fills the cache in place (the KV prefix over
     the P + S positions, the SSM and conv states, the cross K/V) and sets
-    "len" (and "cross_len").  Returns (last-token logits (B, V), cache).
-    For audio, batch["frames"] is encoded and only BOS enters the decoder:
-    batch["tokens"] is then (B, 1)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    if cfg.family == "vlm":
-        S += batch["embeds"].shape[1]
-    for name, n in (("k", S), ("sh_k", S),
-                    ("cross_k", batch["frames"].shape[1] if "cross_k" in cache else 0)):
-        if name in cache and n > cache[name].shape[3]:
-            raise ValueError(f"prefill of {n} positions exceeds the cache's "
-                             f"{cache[name].shape[3]} in {name!r} (the ring "
-                             "buffer is not ported)")
+    "len" (and "cross_len").  A sequence longer than a cache keeps its
+    most recent positions in ring order (`_write_prefix`).  Returns
+    (last-token logits (B, V), cache).  For audio, batch["frames"] is
+    encoded and only BOS enters the decoder: batch["tokens"] is then (B, 1).
+    A model without a sliding window raises on a sequence longer than its
+    self-attention cache: it has no ring to decode into."""
+    S = batch["tokens"].shape[1] + (batch["embeds"].shape[1]
+                                    if cfg.family == "vlm" else 0)
+    S_max = min([cache[n].shape[3] for n in ("k", "sh_k") if n in cache],
+                default=S)
+    if S > S_max and not cfg.sliding_window:
+        raise ValueError(
+            f"a prefill of {S} positions exceeds the cache of {S_max}: only a "
+            "sliding-window model keeps its most recent positions in a ring buffer")
     logits, aux = forward(cfg, params, batch, impl=impl, write_cache=True,
                           sliding_window=sliding_window, moe_cf=moe_cf)
-    for li, kv in enumerate(aux.get("kv", [])):
-        cache["k"][li, :, :, :S] = kv.k
-        cache["v"][li, :, :, :S] = kv.v
+    B = batch["tokens"].shape[0]
+    for kname, vname, kvs in (("k", "v", aux.get("kv", [])),
+                              ("sh_k", "sh_v", aux.get("sh_kv", [])),
+                              ("cross_k", "cross_v", aux.get("cross_kv", []))):
+        for li, kv in enumerate(kvs):
+            _write_prefix(cache[kname][li], kv.k)
+            _write_prefix(cache[vname][li], kv.v)
     for li, st in enumerate(aux.get("ssm", [])):
         cache["ssm"].conv[li].copy_(st.conv)
         cache["ssm"].ssm[li].copy_(st.ssm)
-    for si, kv in enumerate(aux.get("sh_kv", [])):
-        cache["sh_k"][si, :, :, :S] = kv.k
-        cache["sh_v"][si, :, :, :S] = kv.v
-    for li, kv in enumerate(aux.get("cross_kv", [])):
-        n = kv.k.shape[2]
-        cache["cross_k"][li, :, :, :n] = kv.k
-        cache["cross_v"][li, :, :, :n] = kv.v
-        cache["cross_len"].fill_(n)
-    cache["len"] = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    if "cross_kv" in aux:
+        cache["cross_len"].fill_(aux["enc_out"].shape[1])
+    cache["len"] = torch.full((B,), S, dtype=torch.int32, device=logits.device)
     return logits[:, -1], cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
-                token: torch.Tensor, *, impl: str = "auto"):
+                token: torch.Tensor, *, impl: str = "auto",
+                ring_buffer: bool = False):
     """token (B,) int -> (logits (B, V), cache).  One serve step; the new
     token's K/V and the new SSM/conv states are written into the cache in
     place, and cache["len"] advances by one.  moe routes with the capacity
-    factor min(decode_capacity_factor, E)."""
+    factor min(decode_capacity_factor, E).  ring_buffer: the self-attention
+    caches of the dense, vlm and moe layers and the hybrid's shared block
+    are rings (written at len % S_max, attended in full, no window), as the
+    reference passes it; audio's decoder keeps its linear cache."""
     fam = cfg.family
     dt = _dtype(cfg)
     x = params["embed"][token].to(dt)                        # (B, d)
@@ -327,11 +452,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
     eps = cfg.norm_eps
     if fam in ("dense", "vlm", "moe", "audio"):
         for li, pl in enumerate(params["layers"]):
+            ring = ring_buffer and fam != "audio"
             h, _ = L.decode_attention_block(
                 cfg, pl["attn"], L.rms_norm(x, pl["ln1"], eps),
                 L.KVCache(cache["k"][li], cache["v"][li]), clen,
-                sliding_window=0 if fam == "audio" else cfg.sliding_window,
-                impl=impl)
+                sliding_window=0 if fam == "audio" or ring else cfg.sliding_window,
+                ring_buffer=ring, impl=impl)
             x = x + h
             if fam == "audio":
                 h, _ = L.decode_attention_block(
@@ -363,7 +489,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
                 h, _ = L.decode_attention_block(
                     cfg, ps["attn"], L.rms_norm(x, ps["ln1"], eps),
                     L.KVCache(cache["sh_k"][si], cache["sh_v"][si]), clen,
-                    impl=impl)
+                    ring_buffer=ring_buffer, impl=impl)
                 x = x + h
                 x = x + L.swiglu(L.rms_norm(x, ps["ln2"], eps), ps["mlp"])
     x = L.rms_norm(x, params["final_norm"], eps)

@@ -376,3 +376,107 @@ def test_family_models_on_card_match_cpu(cuda, arch):
     assert flash_attention.launches == before[0] + 2 * per_pass   # forward + prefill
     assert flash_decode.launches == before[1] + 4 * (
         2 * cfg.num_layers if cfg.family == "audio" else cfg.num_layers)
+
+
+@pytest.mark.cuda
+def test_auto_kernels_refuse_autograd_on_card(cuda):
+    """On CUDA inputs that require grad, ops.* with impl="auto" raise (the
+    kernels have no backward) as on the CPU; impl="torch" differentiates
+    on the card to the CPU's gradient (f32, 1e-5)."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((1, 4, 64, 64), generator=g) for _ in range(3))
+    x = torch.randn((1, 64, 2, 64), generator=g)
+    bc = torch.randn((1, 64, 16), generator=g)
+    dt = torch.rand((1, 64, 2), generator=g) * 0.1
+    a, d = -torch.rand(2, generator=g), torch.ones(2)
+    calls = {
+        "attention": (lambda q, k, v, x, dt, impl: ops.attention(q, k, v, impl=impl)),
+        "decode_attention": (lambda q, k, v, x, dt, impl: ops.decode_attention(
+            q[:, :, 0], k, v, torch.full((1,), 50, device=q.device), impl=impl)),
+        "ssd_scan": (lambda q, k, v, x, dt, impl: ops.ssd_scan(
+            x, dt, a.to(x.device), bc.to(x.device), bc.to(x.device), d.to(x.device),
+            chunk=32, impl=impl))}
+    for name, fn in calls.items():
+        grads = []
+        for dev in ("cpu", cuda):
+            ts = [t.to(dev).requires_grad_() for t in (q, k, v, x, dt)]
+            if dev != "cpu":
+                with pytest.raises(RuntimeError, match='impl="torch"'):
+                    fn(*ts, "auto")
+            out = fn(*ts, "torch")
+            wrt = ts[3:] if name == "ssd_scan" else ts[:3]
+            grads.append([t.cpu() for t in torch.autograd.grad(out.square().sum(), wrt)])
+        for got, want in zip(grads[1], grads[0]):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "zamba2_2_7b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One reduced f32 `build_train_step` step (the plain attention and
+    SSD, no hand kernel) on the card against the CPU: loss and grad_norm
+    to 1e-4, params to 1e-4 (AdamW's update is ±lr where a gradient is ~0,
+    so a sign flip of one is allowed in 1e-4 of a leaf, within 2 lr)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as mdl
+    from repro_torch.training import adamw_init
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+    params = mdl.init_params(cfg, seed=0, device="cpu")
+    batch = train.make_batch(cfg, 2, 24, np.random.default_rng(2), "cpu")
+    before = flash_attention.launches, flash_decode.launches, ssd_scan.launches
+    out = []
+    for dev in ("cpu", cuda):
+        # the step updates params in place: each device starts from its own copy
+        p = _to(params, dev) if dev != "cpu" else mdl.init_params(cfg, seed=0,
+                                                                  device="cpu")
+        p, _, info = steps.build_train_step(cfg)(
+            p, adamw_init(p), {k: v.to(dev) for k, v in batch.items()})
+        out.append((p, float(info["loss"]), float(info["grad_norm"])))
+    (pc, lc, nc), (pg, lg, ng) = out
+    assert abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-4 * abs(nc)
+    for a, b in zip(mdl.param_leaves(pg), mdl.param_leaves(pc)):
+        a, b = a.cpu(), b
+        off = ~torch.isclose(a, b, atol=1e-4, rtol=1e-4)
+        assert int(off.sum()) <= max(1, b.numel() // 10_000)
+        assert float((a - b).abs().max()) <= 2 * 3e-4
+    assert (flash_attention.launches, flash_decode.launches,
+            ssd_scan.launches) == before
+
+
+@pytest.mark.cuda
+def test_ring_decode_on_card_matches_cpu(cuda):
+    """A reduced f32 llama3_8b with a window of 8: 12 tokens prefilled into
+    a ring of 8, then 6 ring decode steps, on the card (B1, and B2 over the
+    ring) against the CPU (plain versions): logits and the ring to 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model as mdl
+    cfg = dataclasses.replace(reduced_config(get_config("llama3_8b")),
+                              dtype="float32", sliding_window=8)
+    params = mdl.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(6))
+    runs = []
+    before = flash_attention.launches, flash_decode.launches
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        lg, cache = mdl.prefill(cfg, p, {"tokens": prompt.to(dev)},
+                                mdl.init_cache(cfg, 2, 8, device=dev))
+        outs = [lg.cpu()]
+        for i in range(6):
+            lg, cache = mdl.decode_step(cfg, p, cache,
+                                        (prompt[:, i].to(dev) + 1) % cfg.vocab_size,
+                                        ring_buffer=True)
+            outs.append(lg.cpu())
+        runs.append(outs + [cache["k"].cpu(), cache["v"].cpu()])
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert flash_attention.launches == before[0] + cfg.num_layers
+    assert flash_decode.launches == before[1] + 6 * cfg.num_layers

@@ -27,7 +27,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs import reduced_config as j_reduced_config
 from repro.models import model as jmdl
 from repro.models import moe as jmoe
-from repro_torch.bridge import params_from_jax
+from repro_torch.bridge import params_from_jax, params_to_numpy
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch import quickstart
 from repro_torch.models import model as mdl
@@ -194,29 +194,39 @@ def test_index_dispatch_matches_onehot(arch, cf, group_size, dtype):
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "internvl2_76b"])
 def test_prefill_past_cache_raises(arch):
-    _, cfg = _configs(arch)
-    params = mdl.init_params(cfg, device="cpu")
-    tb = {k: torch.from_numpy(v) for k, v in _inputs(cfg, 1, 4, seed=0).items()}
-    # vlm: 16 patch embeddings + 4 tokens in 16 positions; audio: 16 frames
-    # into a cross cache of 8
-    cache = (mdl.init_cache(cfg, 1, 8, enc_len=8, device="cpu")
-             if cfg.family == "audio" else mdl.init_cache(cfg, 1, 16, device="cpu"))
-    with pytest.raises(ValueError, match="ring buffer"):
-        mdl.prefill(cfg, params, tb, cache)
+    """A prefill longer than its cache (vlm: 16 patch embeddings + 4 tokens
+    into 16 positions; audio: 16 frames into a cross cache of 8).  The vlm
+    model has no sliding window, so its self-attention cache has no ring
+    and the prefill raises; with a window of 8 it keeps the most recent
+    positions in ring order, token t at slot t % S_max.  The audio cross
+    cache rolls so in either case.  A roll's last logits and every cache
+    tensor equal the reference's (its `_write_prefix` roll)."""
+    jcfg, cfg = _configs(arch)
+    inputs = _inputs(cfg, 1, 4, seed=0)
+    max_len, enc_len = (8, 8) if cfg.family == "audio" else (16, 0)
+    if cfg.family == "vlm":
+        with pytest.raises(ValueError, match="ring buffer"):
+            mdl.prefill(cfg, mdl.init_params(cfg, device="cpu"),
+                        {k: torch.from_numpy(v) for k, v in inputs.items()},
+                        mdl.init_cache(cfg, 1, max_len, device="cpu"))
+        jcfg, cfg = (dataclasses.replace(c, sliding_window=8) for c in (jcfg, cfg))
+    tree = jax.tree.map(np.asarray, jmdl.init_params(jax.random.PRNGKey(0), jcfg))
+    params = params_from_jax(tree, device="cpu")
+    jl, jcache = jmdl.prefill(jcfg, jax.tree.map(jnp.asarray, tree),
+                              {k: jnp.asarray(v) for k, v in inputs.items()},
+                              jmdl.init_cache(jcfg, 1, max_len, enc_len=enc_len),
+                              impl="xla")
+    pl, cache = mdl.prefill(cfg, params,
+                            {k: torch.from_numpy(v) for k, v in inputs.items()},
+                            mdl.init_cache(cfg, 1, max_len, enc_len=enc_len,
+                                           device="cpu"))
+    _close(pl, jl, "prefill logits")
+    _check_cache(cache, jcache, "prefill past the cache")
 
 
 def _jax_tree(params):
     """The port's per-layer params stacked back into the reference's tree."""
-    def stack(items):
-        if isinstance(items[0], dict):
-            return {k: stack([it[k] for it in items]) for k in items[0]}
-        return jnp.asarray(np.stack([t.numpy() for t in items]))
-    tree = {k: jnp.asarray(params[k].numpy())
-            for k in ("embed", "final_norm", "lm_head", "enc_norm") if k in params}
-    for k in ("layers", "encoder"):
-        if k in params:
-            tree[k] = stack(params[k])
-    return tree
+    return jax.tree.map(jnp.asarray, params_to_numpy(params))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -36,7 +36,7 @@ COPIED = ["core/request.py", "core/simulator.py", "core/backend.py",
           "core/scenarios.py", "core/workload.py", "core/fleet.py",
           "experiments/__init__.py", "experiments/spec.py",
           "experiments/claims.py", "experiments/report.py",
-          "experiments/robustness.py"]
+          "experiments/robustness.py", "training/data.py"]
 
 
 def _port_files():
@@ -101,11 +101,13 @@ def _tiny():
 @pytest.mark.parametrize("entry", ["engine", "backend", "cluster", "init",
                                    "serve_cli", "quickstart_cli",
                                    "serve_cluster_cli", "engine_overhead_cli",
-                                   "engine_stack", "run_spec"])
+                                   "engine_stack", "run_spec", "train_cli",
+                                   "train_lm_cli"])
 def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
     from repro_torch.experiments import runner
     from repro_torch.experiments.spec import ExperimentSpec
-    from repro_torch.launch import engine_overhead, quickstart, serve, serve_cluster
+    from repro_torch.launch import (engine_overhead, quickstart, serve, serve_cluster,
+                                    train, train_lm)
     from repro_torch.models import init_params
     from repro_torch.serving import EngineBackend, MiniCluster, ReplicaEngine
     cfg, params = _tiny()
@@ -122,6 +124,8 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
         "engine_stack": lambda: runner.engine_stack("mistral_7b", "analytic"),
         "run_spec": lambda: runner.run_spec(ExperimentSpec(
             policy="fifo", scenario="smoke_mini", backend="engine")),
+        "train_cli": lambda: train.main(["--arch", "mistral_7b", "--steps", "1"]),
+        "train_lm_cli": lambda: train_lm.main(["--steps", "1"]),
     }
     monkeypatch.setattr(sys, "argv", ["serve", "--layers", "2"])
     with pytest.raises(RuntimeError):

@@ -20,7 +20,7 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.configs import reduced_config as j_reduced_config
 from repro.models import model as jmdl
-from repro_torch.bridge import params_from_jax
+from repro_torch.bridge import params_from_jax, params_to_numpy
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch import quickstart
 from repro_torch.models import model as mdl
@@ -93,12 +93,27 @@ def test_forward_prefill_decode_match_jax(arch, impl):
 
 
 def test_prefill_past_cache_raises():
-    _, cfg = _configs("zamba2_2_7b", 2)
-    params = mdl.init_params(cfg, device="cpu")
-    cache = mdl.init_cache(cfg, 1, 8, device="cpu")
+    """A prefill of 9 tokens into a shared-block cache of 8 raises: zamba2
+    has no sliding window, so sh_k / sh_v have no ring.  With a window set
+    (the shared block attends without one, as in the reference) sh_k / sh_v
+    keep the most recent 8 positions in ring order (token t at slot t % 8),
+    equal to the reference's roll, with equal last logits and SSM states."""
+    jcfg, cfg = _configs("zamba2_2_7b", 2)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 9)).astype(np.int32)
     with pytest.raises(ValueError, match="ring buffer"):
-        mdl.prefill(cfg, params, {"tokens": torch.zeros((1, 9), dtype=torch.long)},
-                    cache)
+        mdl.prefill(cfg, mdl.init_params(cfg, device="cpu"),
+                    {"tokens": torch.from_numpy(toks)},
+                    mdl.init_cache(cfg, 1, 8, device="cpu"))
+    jcfg, cfg = (dataclasses.replace(c, sliding_window=8) for c in (jcfg, cfg))
+    tree = jax.tree.map(np.asarray, jmdl.init_params(jax.random.PRNGKey(0), jcfg))
+    params = params_from_jax(tree, device="cpu")
+    jl, jcache = jmdl.prefill(jcfg, jax.tree.map(jnp.asarray, tree),
+                              {"tokens": jnp.asarray(toks)},
+                              jmdl.init_cache(jcfg, 1, 8), impl="xla")
+    pl, cache = mdl.prefill(cfg, params, {"tokens": torch.from_numpy(toks)},
+                            mdl.init_cache(cfg, 1, 8, device="cpu"))
+    _close(pl, jl, "prefill logits")
+    _check_cache(cfg, cache, jcache, "prefill past the cache")
 
 
 def test_init_params_shapes_and_dtypes():
@@ -120,17 +135,7 @@ def test_init_params_shapes_and_dtypes():
 
 def _jax_tree(params):
     """The port's per-layer params stacked back into the reference's tree."""
-    def stack(items):
-        if isinstance(items[0], dict):
-            return {k: stack([it[k] for it in items]) for k in items[0]}
-        return jnp.asarray(np.stack([t.numpy() for t in items]))
-    tree = {k: jnp.asarray(params[k].numpy())
-            for k in ("embed", "final_norm", "lm_head")}
-    tree["layers"] = stack(params["layers"])
-    if "shared" in params:
-        tree["shared"] = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
-                                      params["shared"])
-    return tree
+    return jax.tree.map(jnp.asarray, params_to_numpy(params))
 
 
 @pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_2_7b"])
