@@ -99,11 +99,26 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
 17. ring     — llama3_8b's serve step at long_500k, full width and depth in
                bf16: 12,288 tokens prefilled into a ring of 8192, 32 ring
                decode steps, launches exact; in f32 at 4 layers the ring's
-               logits equal a windowed forward's (1e-3 / 5e-3).
+               logits equal a windowed forward's (1e-3 / 5e-3);
+18. gang     — gang sequence-parallel prefill (paper §5.3) on a mesh whose
+               ranks share the card: B1 with its LSE at the ring's hop
+               shapes (the diagonal, a hop that sees every key, a fully
+               masked hop at exactly 0 / -inf; the kernel table times the
+               first two); full-width mistral_7b in bf16 prefilling 8192
+               tokens by a gang of 4 on a (2, 2) mesh with each inner
+               strategy against the single-replica engine (the same first
+               token, GANG_REL_TOL, B1 launched 32 x 4 x 2 times exactly);
+               `EngineBackend` gang-prefilling the reference test's long
+               through pecsched, preempted and not, with the same tokens;
+               f32 on the reference test's model (4 layers, d_model 256)
+               to its 5e-4 / 5e-5, card = CPU, the ring's last hop
+               dropped reading above them; distributed
+               decode over 4 ranks of a 4 x 8192 cache against B2 and the
+               plain decode.
 
 Then one JSON line with every kernel's numbers (launches summed over the
-serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm and ring
-phases; the train phases launch none)
+serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring and
+gang phases; the train phases launch none)
 and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
@@ -135,6 +150,24 @@ GREEDY_AGREEMENT = 0.95
 CLUSTER_UTILIZATION = 4.0
 #: ring: the prompt prefilled into llama3_8b's ring of 8192 (one and a half windows)
 RING_PROMPT = 12288
+#: gang: mistral_7b's prompt, prefilled by a gang of GANG_DEGREE ranks on a
+#: (2, 2) mesh: each outer segment, a ring hop's query and key length, is
+#: GANG_SEG tokens
+GANG_PROMPT, GANG_DEGREE = 8192, 4
+GANG_SEG = GANG_PROMPT // 2
+#: gang: full width in bf16, the gang's logits and each (layer, KV head)'s
+#: KV against the single replica's, in ||got - want|| / ||want||.  The two
+#: are bf16 roundings apart, not equal: the ring merges hop outputs that B1
+#: rounded to bf16 (as the reference merges its bf16 hop outputs), one more
+#: rounding of every attention output (2^-9 relative), carried down the
+#: residual stream; on the CPU at 8-16 layers of a narrower model the
+#: readings are 1.1e-2 - 1.6e-2.  A dropped hop reads O(1) (the f32 fault).
+GANG_REL_TOL = 5e-2
+#: gang: f32 on tests/multidevice/test_gang_sp.py's model (mistral_7b
+#: reduced to 4 layers, d_model 256) and prompt (96 tokens, seed 1), to
+#: its limits: logits and KV, max |error|
+GANG_F32_LAYERS, GANG_F32_PROMPT = 4, 96
+GANG_F32_TOL = {"logits": 5e-4, "kv": 5e-5}
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 BF16_FLOPS = 989e12
 
@@ -333,7 +366,10 @@ def phase_kernels(torch, dev):
     # olmoe_1b_7b's prefill (MHA 16, D 128); seamless_m4t_large_v2's encoder
     # (unmasked over 1024 frames, MHA 16, D 64) and its decoder's BOS row
     # across to those frames; internvl2_76b's prefill (64 q / 8 KV heads);
-    # llama3_8b's ring prefill at long_500k (12,288 tokens, window 8192).
+    # llama3_8b's ring prefill at long_500k (12,288 tokens, window 8192);
+    # the gang SP ring's hops of mistral_7b at 8192 tokens over a (2, 2)
+    # mesh (GANG_*: 16 q / 4 KV heads per rank over a 4096-token segment),
+    # the diagonal and the hop that sees every key.
     # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
@@ -349,7 +385,11 @@ def phase_kernels(torch, dev):
             ("fa_vlm_gqa8_causal_2048", 4, 64, 8, 128, 2048, 2048, 0, 0, False,
              True),
             ("fa_ring_llama3_w8192_12288", 1, 32, 8, 128, RING_PROMPT, RING_PROMPT,
-             0, 8192, False, True)):
+             0, 8192, False, True),
+            ("fa_gang_hop_diagonal_4096", 1, 16, 4, 128, GANG_SEG, GANG_SEG, 0, 0,
+             False, True),
+            ("fa_gang_hop_visible_4096", 1, 16, 4, 128, GANG_SEG, GANG_SEG,
+             GANG_SEG, 0, False, True)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kl = [sk, sk - 77] if ragged else [sk] * B
@@ -384,15 +424,18 @@ def phase_kernels(torch, dev):
                                                       else True)
         mask = mask & (kpos[None, None] < torch.tensor(kl, device=dev)[:, None, None,
                                                                        None])
-        dense = qo == 0 and win == 0 and not ragged and (sq == sk or not causal)
+        # every key visible to every query: SDPA runs it unmasked
+        full = causal and qo >= sk - 1 and not win and not ragged
+        dense = full or (qo == 0 and win == 0 and not ragged
+                         and (sq == sk or not causal))
         pairs = _visible_pairs(sq, kl, causal, win, qo)
         flops = 4 * H * D * pairs
         k_rows = sum(min(x, sq + qo) if causal else x for x in kl)
         nbytes = 2 * (2 * B * H * sq * D + 2 * KV * k_rows * D)
         sets = _copies(torch, dev, nbytes, _bound(flops, nbytes)[1], (q, k, v))
         calls = [lambda t=t: flash_attention(*t, **kw) for t in sets]
-        lib = [(lambda t=t: F.scaled_dot_product_attention(*t, is_causal=causal,
-                                                           enable_gqa=True))
+        lib = [(lambda t=t: F.scaled_dot_product_attention(
+                    *t, is_causal=causal and not full, enable_gqa=True))
                if dense else
                (lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask,
                                                            enable_gqa=True))
@@ -1304,6 +1347,289 @@ def phase_ring(torch, dev):
     return {n: pre[n] + dec[n] for n in pre}
 
 
+def _gang_trace(n_shorts=12, long_output=6, gap=2e-3):
+    """tests/multidevice/test_gang_sp.py's gang trace: a 300K-token long at
+    0 and `n_shorts` shorts every `gap` seconds behind it."""
+    import numpy as np
+
+    from repro_torch.core.request import Request
+    reqs = [Request(rid=0, arrival=0.0, input_len=300_000,
+                    output_len=long_output, is_long=True)]
+    rng = np.random.default_rng(4)
+    for i in range(1, n_shorts + 1):
+        reqs.append(Request(rid=i, arrival=round(i * gap, 6),
+                            input_len=int(rng.integers(300, 3000)),
+                            output_len=int(rng.integers(2, 8))))
+    return reqs
+
+
+def _gang_tokens(req):
+    """That test's engine prompts: 224 tokens for the long, 16 a short."""
+    import numpy as np
+    rng = np.random.default_rng(req.rid + 11)
+    return rng.integers(0, 1000, 224 if req.is_long else 16).astype(np.int32)
+
+
+def _engine_prefill(torch, eng, toks):
+    """(logits, k, v) of a single-replica prefill of `toks` (S,)."""
+    st = eng.start_prefill(0, torch.as_tensor(toks[None], dtype=torch.long))
+    done = False
+    while not done:
+        st, done = eng.prefill_quantum(st)
+    return (eng.prefill_logits(st), *st.full_kv())
+
+
+def _gang_run(runner, toks, layers, device):
+    """(logits, k, v) of a gang prefill of `toks` in quanta of `layers`
+    layers, the KV joined on `device`."""
+    from repro_torch.sp import SPPlan
+    plan = SPPlan({"a2a": "ulysses", "allgather": "megatron"}[runner.strategy],
+                  "ulysses", 0.0)
+    st = runner.start(0, toks, plan)
+    done = False
+    while not done:
+        st, done = runner.quantum(st, layers)
+    return (runner.logits(st), *runner.gather_kv(st, device))
+
+
+def _gang_errs(got, want):
+    """{"logits": max |error|, "kv": max |error| over K and V}."""
+    return {"logits": (got[0].float().cpu() - want[0].float().cpu()).abs().max().item(),
+            "kv": max((a.float().cpu() - b.float().cpu()).abs().max().item()
+                      for a, b in zip(got[1:], want[1:]))}
+
+
+def phase_gang(torch, dev):
+    """Gang sequence-parallel prefill (paper §5.3) on a single-controller
+    mesh whose ranks share the card:
+
+    1. B1 at the ring's hop shapes (a GANG_PROMPT prompt over a (2, 2)
+       mesh: q (1, 16, GANG_SEG, 128), k/v (1, 4, GANG_SEG, 128)) with its
+       LSE, against the plain version (`checks.attention_check`): the
+       diagonal, the hop that sees every key (q_offset +GANG_SEG) and the
+       fully masked one (-GANG_SEG), which must give exactly 0 and -inf;
+       the kernel table times the first two;
+    2. full-width mistral_7b in bf16 (32 layers), a GANG_PROMPT prompt, a
+       gang of GANG_DEGREE on [card] * 4 with each inner strategy, against
+       the single-replica `ReplicaEngine` prefill: the same first token,
+       logits and every (layer, KV head)'s KV within GANG_REL_TOL in
+       relative norm, B1 launched layers x ranks x hops times per gang
+       prefill; the wall times of both (the ranks share one card: the gang
+       is not expected to be faster) and a profile of one more of each
+       (device busy time, idle share, operations);
+    3. `EngineBackend` at full width on the measured clock, pecsched, 2
+       general + 1 decode engine, sp_devices=[card] * 2, the gang trace of
+       tests/multidevice/test_gang_sp.py: the long is gang-prefilled and
+       scattered in ceil(32 / (2 x lpq)) quanta, and preempted by 16
+       shorts it generates exactly its quiet run's tokens; sp_per_layer_s;
+    4. f32 on the reference test's model and prompt (mistral_7b reduced to
+       GANG_F32_LAYERS layers, GANG_F32_PROMPT tokens): the gang (both
+       strategies) against the single replica on the card and the gang on
+       the card against the gang on the CPU, to GANG_F32_TOL; the ring's
+       last hop dropped must read above those limits;
+    5. distributed decode over 4 ranks of a 4 x GANG_PROMPT cache: bf16
+       against B2 over the whole cache (2e-2), f32 against the plain
+       decode (2e-5), with and without a window.
+    Returns the launches of the main path (parts 2 and 3)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import ClusterConfig, ExecutionModel, Simulator, make_policy
+    from repro_torch.hardware import H100_SXM
+    from repro_torch.kernels.checks import F32_TOL, attention_check, rel_err
+    from repro_torch.kernels.checks import TOL as BF16_TOL
+    from repro_torch.kernels.flash_decode import flash_decode, torch_decode
+    from repro_torch.models import init_params
+    from repro_torch.serving.backend import EngineBackend
+    from repro_torch.serving.engine import ReplicaEngine
+    from repro_torch.sp import (GangMesh, GangSPRunner, distributed_decode_attention,
+                                make_gang_mesh)
+    from repro_torch.sp import ring as sp_ring
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    # 1. B1 at the hop shapes, output and LSE
+    q, k, v = rn(1, 16, GANG_SEG, 128), rn(1, 4, GANG_SEG, 128), rn(1, 4, GANG_SEG, 128)
+    hops = [attention_check(f"gang_hop_{name}", q, k, v, causal=True, q_offset=qo)
+            for name, qo in (("diagonal", 0), ("visible", GANG_SEG),
+                             ("masked", -GANG_SEG))]
+    if hops[2]["empty_rows"] != q.shape[1] * q.shape[2]:
+        raise AssertionError(f"gang: the masked hop left {hops[2]['empty_rows']} "
+                             "empty rows, not all")
+    del q, k, v
+
+    # 2. full width bf16: the gang against the single replica
+    cfg = get_config("mistral_7b")
+    params = init_params(cfg, seed=0, device=dev)
+    toks = np.random.default_rng(18).integers(0, cfg.vocab_size,
+                                              GANG_PROMPT).astype(np.int32)
+    eng = ReplicaEngine(cfg, params, max_slots=1, max_len=GANG_PROMPT,
+                        layers_per_quantum=2, device=dev)
+    _engine_prefill(torch, eng, toks)                      # first-call costs
+    want, single_s, single_counts = _run_counted(
+        torch, lambda: _engine_prefill(torch, eng, toks))
+    single_prof = _profile_steps(torch, lambda: _engine_prefill(torch, eng, toks), 1)
+    del eng
+    first = int(want[0][0].argmax())
+    totals = dict.fromkeys(_counters(), 0)
+    full = {}
+    for strategy in ("a2a", "allgather"):
+        mesh = make_gang_mesh(GANG_DEGREE, cfg.num_heads, [dev] * GANG_DEGREE)
+        runner = GangSPRunner(cfg, params, mesh, strategy)
+        quantum = 2 * GANG_DEGREE                  # lpq 2 x degree, as the backend
+        _gang_run(runner, toks, quantum, dev)
+        got, gang_s, counts = _run_counted(
+            torch, lambda: _gang_run(runner, toks, quantum, dev))
+        _expect("gang", f"flash_attention per {strategy} gang prefill",
+                counts["flash_attention"],
+                cfg.num_layers * GANG_DEGREE * mesh.shape["ring"])
+        rel = {"logits": rel_err(got[0][None], want[0][None].float()),
+               "kv": max(rel_err(a, b.float()) for a, b in zip(got[1:], want[1:]))}
+        token = int(got[0][0].argmax())
+        if token != first:
+            raise AssertionError(f"gang: {strategy} chose token {token}, the "
+                                 f"single replica {first}")
+        if not max(rel.values()) < GANG_REL_TOL:
+            raise AssertionError(f"gang: {strategy} against the single replica "
+                                 f"{rel} (limit {GANG_REL_TOL})")
+        for n in totals:
+            totals[n] += counts[n]
+        full[strategy] = dict(rel_err=rel, first_token=token, gang_wall_s=gang_s,
+                              launches=counts, profile=_profile_steps(
+                                  torch, lambda: _gang_run(runner, toks, quantum, dev),
+                                  1))
+        del runner, got
+    del want
+
+    # 3. through the scheduler: a preempted gang long gives its quiet tokens
+    lpq = 2
+    cc = ClusterConfig(n_nodes=1, gpus_per_node=3, tp=1, hw=H100_SXM,
+                       n_short_decode_replicas=1, max_decode_concurrency=8)
+    em = ExecutionModel(cfg, cc.replica_spec(), target_prefill_s=0.05)
+    be = EngineBackend(cfg, params, max_len=256, layers_per_quantum=lpq,
+                       clock="measured", token_provider=_gang_tokens, device=dev,
+                       sp_devices=[dev] * 2)
+    be.warmup([16, 224], [0, 1, 2])
+    be.warmup_gang([224], [2])
+
+    def serve(trace):
+        be.reset()
+        s = Simulator(make_policy("pecsched", cc, em), backend=be).run(trace)
+        if be.stats["gang_prefills"] != 1 or be.stats["gang_scatters"] < 1:
+            raise AssertionError(f"gang: the long was not gang-prefilled and "
+                                 f"scattered: {dict(be.stats)}")
+        if be.stats["sp_prefill_quanta"] != -(-cfg.num_layers // (2 * lpq)):
+            raise AssertionError(f"gang: {be.stats['sp_prefill_quanta']} gang quanta "
+                                 f"for {cfg.num_layers} layers at {2 * lpq} a quantum")
+        if s["long_completed"] != 1 or s["short_completed"] != len(trace) - 1:
+            raise AssertionError(f"gang: the trace did not complete: {s}")
+        return s, list(be.generated[0]), dict(be.stats)
+    quiet, quiet_tokens, _ = serve(_gang_trace(n_shorts=0))
+    (busy, busy_tokens, stats), busy_s, counts = _run_counted(
+        torch, lambda: serve(_gang_trace(n_shorts=16, gap=1e-4)))
+    if not busy["preemptions"] > 0:
+        raise AssertionError("gang: short pressure never preempted the gang")
+    if busy_tokens != quiet_tokens:
+        raise AssertionError(f"gang: the preempted long generated {busy_tokens}, "
+                             f"unpreempted {quiet_tokens}")
+    for n in totals:
+        totals[n] += counts[n]
+    sched = dict(preemptions=busy["preemptions"], tokens=busy_tokens,
+                 gang_prefills=stats["gang_prefills"],
+                 gang_scatters=stats["gang_scatters"],
+                 sp_prefill_quanta=stats["sp_prefill_quanta"],
+                 long_jct_s=busy["long_jct_mean"], wall_s=busy_s,
+                 sp_per_layer_s=be.sp_per_layer_s(), launches=counts)
+    del be, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. f32 on the reference test's model: its limits, card = CPU, a fault
+    cfg32 = dataclasses.replace(reduced_config(cfg, layers=GANG_F32_LAYERS),
+                                dtype="float32", sliding_window=0)
+    p32 = init_params(cfg32, seed=0, device=dev)
+    toks32 = np.random.default_rng(1).integers(0, cfg32.vocab_size,
+                                               GANG_F32_PROMPT).astype(np.int32)
+    eng = ReplicaEngine(cfg32, p32, max_slots=1, max_len=GANG_F32_PROMPT,
+                        layers_per_quantum=2, device=dev)
+    want = _engine_prefill(torch, eng, toks32)
+    del eng
+    mesh = make_gang_mesh(GANG_DEGREE, cfg32.num_heads, [dev] * GANG_DEGREE)
+
+    def within(what, errs):
+        if any(errs[n] > GANG_F32_TOL[n] for n in errs):
+            raise AssertionError(f"gang: f32 {what} {errs} (limits {GANG_F32_TOL})")
+        return errs
+    f32 = {}
+    card = {}
+    for strategy in ("a2a", "allgather"):
+        card[strategy] = _gang_run(GangSPRunner(cfg32, p32, mesh, strategy), toks32,
+                                   2 * GANG_DEGREE, dev)
+        f32[f"{strategy}_vs_single"] = within(strategy, _gang_errs(card[strategy],
+                                                                  want))
+    cpu = _gang_run(GangSPRunner(cfg32, _tree_to(p32, "cpu"),
+                                 make_gang_mesh(GANG_DEGREE, cfg32.num_heads,
+                                                ["cpu"] * GANG_DEGREE), "a2a"),
+                    toks32, 2 * GANG_DEGREE, "cpu")
+    f32["card_vs_cpu"] = within("card against the CPU", _gang_errs(card["a2a"], cpu))
+    # the planted fault: every rank's last ring hop left out of its merge (the
+    # ring merges hop by hop, each over every rank in rank order)
+    real, calls, n_hops = sp_ring.merge_partials, [0], mesh.shape["ring"]
+
+    def last_hop_dropped(o1, l1, o2, l2):
+        hop = calls[0] // GANG_DEGREE % n_hops
+        calls[0] += 1
+        return (o1, l1) if hop == n_hops - 1 else real(o1, l1, o2, l2)
+    sp_ring.merge_partials = last_hop_dropped
+    try:
+        fault = _gang_errs(_gang_run(GangSPRunner(cfg32, p32, mesh, "a2a"), toks32,
+                                     2 * GANG_DEGREE, dev), want)
+    finally:
+        sp_ring.merge_partials = real
+    if not all(fault[n] > GANG_F32_TOL[n] for n in fault):
+        raise AssertionError(f"gang: the ring's last hop dropped reads {fault}, "
+                             f"inside the limits {GANG_F32_TOL}")
+    del p32, card, cpu, want
+    torch.cuda.empty_cache()
+
+    # 5. distributed decode over 4 ranks of a 4 x GANG_PROMPT cache
+    B, H, KV, S, D = 4, cfg.num_heads, cfg.num_kv_heads, GANG_PROMPT, cfg.head_dim
+    q, k, v = rn(B, H, D), rn(B, KV, S, D), rn(B, KV, S, D)
+    cl = torch.tensor([S, S - S // 8, S // 2 + 1, 123], dtype=torch.int32, device=dev)
+    mesh = GangMesh([dev] * 4, (4,), ("data",))
+    decode = {}
+    for name, dt, tol, plain in (("bf16_vs_b2", torch.bfloat16, BF16_TOL, flash_decode),
+                                 ("f32_vs_plain", torch.float32, F32_TOL, torch_decode)):
+        for win in (0, S // 2):
+            args = [t.to(dt) for t in (q, k, v)] + [cl]
+            got = distributed_decode_attention(*args, mesh=mesh, seq_axes=("data",),
+                                               sliding_window=win).float()
+            ref = plain(*args, sliding_window=win).float()
+            err = (got - ref).abs().max().item()
+            if not torch.allclose(got, ref, atol=tol, rtol=tol):
+                raise AssertionError(f"gang: distributed decode {name} window {win}:"
+                                     f" max |error| {err} (tol {tol})")
+            decode[f"{name}_w{win}"] = err
+    _say("gang", arch="mistral_7b", layers=cfg.num_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, prompt_tokens=GANG_PROMPT, degree=GANG_DEGREE,
+         mesh={"ring": GANG_DEGREE // 2, "sp": 2}, ranks_on="one card",
+         hops=hops, single_replica_wall_s=single_s, single_launches=single_counts,
+         single_replica_profile=single_prof,
+         first_token=first, rel_tol=GANG_REL_TOL, strategies=full,
+         scheduler=sched, f32_model=dict(layers=GANG_F32_LAYERS,
+                                         d_model=cfg32.d_model),
+         f32_prompt=GANG_F32_PROMPT,
+         f32_tol=GANG_F32_TOL, f32_max_abs_err=f32, f32_fault_last_hop_dropped=fault,
+         decode_ranks=4, decode_cache=[B, S], decode_max_abs_err=decode,
+         decode_tol={"bf16": BF16_TOL, "f32": F32_TOL},
+         phase_s=time.perf_counter() - t_phase)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1374,6 +1700,9 @@ def main() -> int:
     phase_train_lm(torch, dev)
     torch.cuda.empty_cache()
     for name, n in phase_ring(torch, dev).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in phase_gang(torch, dev).items():
         launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -23,15 +23,19 @@ from repro_torch.kernels.ssd_kernel import torch_ssd_scan
 
 
 def attention(q, k, v, *, causal=True, sliding_window=0, q_offset=0,
-              kv_len=None, impl="auto", scale=None):
-    """Multi-head GQA attention.  q (B,H,Sq,D), k/v (B,KV,Sk,D)."""
+              kv_len=None, impl="auto", scale=None, return_lse=False):
+    """Multi-head GQA attention.  q (B,H,Sq,D), k/v (B,KV,Sk,D).
+    return_lse: also the f32 row log-sum-exp (B,H,Sq), -inf for a row with
+    no visible key (the SP ring merges hops on it; not from "ref")."""
     kw = dict(causal=causal, sliding_window=sliding_window, q_offset=q_offset,
               kv_len=kv_len, scale=scale)
     if impl == "auto":
-        return flash_attention(q, k, v, **kw)
+        return flash_attention(q, k, v, return_lse=return_lse, **kw)
     if impl == "torch":
-        return torch_attention(q, k, v, **kw)
+        return torch_attention(q, k, v, return_lse=return_lse, **kw)
     if impl == "ref":
+        if return_lse:
+            raise ValueError("the naive oracle gives no LSE")
         return _ref.mha_reference(q, k, v, **kw)
     raise ValueError(f"unknown impl {impl}")
 

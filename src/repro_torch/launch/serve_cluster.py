@@ -23,10 +23,11 @@ Scenario traces carry cluster-scale token counts.  On the reduced model the
 backend maps them to engine-sized prompts (log-scaled, bucketed), as the
 reference does; at full width a prompt is its cluster length over
 FULL_TOKEN_DIVISOR (`scaled_prompts`), so a long runs thousands of tokens
-and its prefill spans enough time for shorts to preempt it.  Gang
-sequence-parallel prefill is not ported: on one card the gang degree is 1
-and every long runs the single-replica path on the first replica it
-claims.
+and its prefill spans enough time for shorts to preempt it.  A long that
+claims several replicas is gang-prefilled with fast SP over the backend's
+`sp_devices`, every visible card by default: on a one-card host the gang
+degree is 1 and the long runs the single-replica path on the first replica
+it claims.
 """
 from __future__ import annotations
 

@@ -16,12 +16,22 @@ on genuine engines:
   decode is slot-chunked, so a burst larger than `max_slots` waits for
   evictions instead of crashing (`SlotsFull`).
 
-Gang-scheduled fast SP (§5.3) is not ported yet (ROADMAP Queue A7): a long
-prefill whose realisable gang degree is 2 or more raises
-NotImplementedError.  `gang_degree` keeps the reference's meaning — the
-claimed replicas clipped to the host's device count — so on one card (or
-the CPU) it is 1 and the long runs the single-replica path, exactly as the
-reference does on a one-device host.
+Gang-scheduled fast SP (§5.3, the paper's third technique): when a policy
+starts a multi-replica ``long_prefill`` with ``sp_mode="fastsp"``, the
+backend *gangs* the group — it maps the claimed replicas onto a (ring, sp)
+`GangMesh` over `sp_devices` (`sp/gang.py`), runs the hybrid SP attention
+(outer ring, inner a2a/allgather per the planner's `SPPlan.inner_impl`, B1
+as every hop's local attention on the card) quantum by quantum with
+preemption points in between, and on completion scatters the sequence-
+sharded KV back into the home replica's paged pool (`scatter_kv`), where
+decode picks it up.  A gang quantum covers ``layers_per_quantum x degree``
+layers, so the prefill completes in ~degree x fewer engine quanta.
+Per-degree measured seconds per layer accumulate in ``sp_timings`` and
+feed `calibrate_costmodel`.  `gang_degree` clips a claim to the count of
+`sp_devices` — by default every visible card on CUDA and one CPU device
+on the CPU — so on a one-card host the long runs the single-replica path,
+as the reference does on a one-device host; ``sp_mode="ring"`` (the /FSP
+ablation and all baselines) always does.
 
 Two virtual-clock modes:
 
@@ -40,7 +50,7 @@ from __future__ import annotations
 import math
 import time
 from collections import Counter, deque
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +59,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import ExecutionBackend
 from repro_torch.core.request import Request
 from repro_torch.core.simulator import Work
-from repro_torch.hardware import resolve_device
+from repro_torch.hardware import H100_SXM, resolve_device
 from repro_torch.serving.engine import PrefillState, ReplicaEngine, SlotsFull
+from repro_torch.sp.gang import (GangPrefillState, GangSPRunner, gang_degree,
+                                 make_gang_mesh, plan_for_gang)
+from repro_torch.sp.planner import HardwareSpec
 
 # kinds that no policy ever cancels: execute eagerly at submit time
 # (`pred_decode` rounds end at their own preemption point)
@@ -61,16 +74,6 @@ _PREEMPTIBLE_KINDS = ("long_prefill", "long_decode")
 
 # synthesized-prompt length buckets (bounded set of shapes per engine)
 _BUCKETS = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
-
-
-def gang_degree(requested: int, *, n_devices: int, cap: int = 0) -> int:
-    """Realisable gang size: the replicas the policy claimed, clipped to the
-    host's device count (and an optional cap); < 2 means "no gang,
-    single-replica path" (the reference's ``sp/gang.py`` rule)."""
-    n = min(requested, n_devices)
-    if cap:
-        n = min(n, cap)
-    return n if n >= 2 else 1
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -89,9 +92,20 @@ class EngineBackend(ExecutionBackend):
                  token_provider: Optional[Callable[[Request],
                                                    Optional[np.ndarray]]] = None,
                  seed: int = 0, enable_sp: bool = True,
-                 sp_degree_cap: int = 0, device="cuda"):
+                 sp_degree_cap: int = 0, device="cuda",
+                 sp_devices: Optional[Sequence] = None,
+                 hw: HardwareSpec = H100_SXM):
         assert clock in ("measured", "analytic"), clock
         self.device = resolve_device(device)
+        #: the devices a gang's ranks run on (several ranks may share one);
+        #: by default every visible card on CUDA, one CPU device on the CPU
+        if sp_devices is None:
+            sp_devices = ([torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+                          if self.device.type == "cuda" else ["cpu"])
+        self.sp_devices = [resolve_device(d) for d in sp_devices]
+        #: the hardware the gang planner prices its strategies on
+        self.hw = hw
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -111,6 +125,7 @@ class EngineBackend(ExecutionBackend):
         # prefix-group token streams (shared leading tokens per group)
         self._group_streams: Dict[int, np.ndarray] = {}
         self._psessions: Dict[int, PrefillState] = {}     # in-flight prefills
+        self._gangs: Dict[int, GangPrefillState] = {}     # in-flight gang SP
         self._dsessions: Dict[int, Dict] = {}             # in-flight long decodes
         self._kv: Dict[int, PrefillState] = {}            # prefilled, not decoded
         self._resident: Dict[int, int] = {}               # rid -> home replica
@@ -119,6 +134,7 @@ class EngineBackend(ExecutionBackend):
         # of evicted decode lanes, and cluster-token decode progress per rid
         self._parked_decode: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._pdone: Dict[int, int] = {}
+        self._gang_runners: Dict[Tuple[int, str], GangSPRunner] = {}
         self.generated: Dict[int, List[int]] = {}         # request rid -> tokens
         self.stats = Counter()
         self.measured_s = 0.0
@@ -129,11 +145,13 @@ class EngineBackend(ExecutionBackend):
 
     # ------------------------------------------------------------------
     def reset(self) -> None:
-        """Clear per-run state; engines and sp_timings survive."""
+        """Clear per-run state; engines, gang runners and sp_timings
+        survive."""
         for eng in self._engines.values():
             eng.clear()
         self._tokens.clear()
         self._psessions.clear()
+        self._gangs.clear()
         self._dsessions.clear()
         self._kv.clear()
         self._resident.clear()
@@ -169,6 +187,29 @@ class EngineBackend(ExecutionBackend):
                 slot = eng.admit(-1, st)
                 eng.decode_iteration({slot: 0})
                 eng.evict(slot)
+        self._sync()
+
+    def warmup_gang(self, lengths, degrees, *,
+                    cluster_input_len: int = 300_000) -> None:
+        """Run each gang shape once per prompt length (embed, every quantum,
+        logits), with the inner strategy the planner picks at
+        `cluster_input_len` — the gang counterpart of `warmup`, keeping
+        first-call costs off the measured clock and out of the `sp_timings`
+        calibration samples."""
+        for requested in sorted(set(degrees)):
+            degree = gang_degree(requested, n_devices=len(self.sp_devices),
+                                 cap=self.sp_degree_cap)
+            if degree < 2:
+                continue
+            mesh = make_gang_mesh(degree, self.cfg.num_heads, self.sp_devices)
+            plan = plan_for_gang(self.cfg, cluster_input_len, mesh, self.hw)
+            runner = self._runner_for(degree, plan.inner_impl)
+            for n in sorted(set(lengths)):
+                st = runner.start(-1, np.zeros(int(n), np.int32), plan)
+                done = False
+                while not done:
+                    st, done = runner.quantum(st, self.lpq * degree)
+                runner.logits(st)
         self._sync()
 
     def _engine(self, rid: int) -> ReplicaEngine:
@@ -228,8 +269,9 @@ class EngineBackend(ExecutionBackend):
 
     # ---- timed execution primitives ----------------------------------
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {self.device, *self.sp_devices}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _timed(self, fn, *args):
         """Run fn and charge its wall time, synchronised with the card so the
@@ -299,18 +341,69 @@ class EngineBackend(ExecutionBackend):
             eng.cache_prompt(0x40000000 ^ req.rid, k, v, st.host_tokens)
         return dt
 
+    # ---- gang-scheduled SP prefill (§5.3) ----------------------------
     def _gang_degree_for(self, work: Work) -> int:
         if not self.enable_sp or work.sp_mode != "fastsp":
             return 1
-        n_devices = (torch.cuda.device_count() if self.device.type == "cuda"
-                     else 1)
-        degree = gang_degree(len(work.replica_ids), n_devices=n_devices,
-                             cap=self.sp_degree_cap)
-        if degree >= 2:
-            raise NotImplementedError(
-                f"gang-SP prefill of degree {degree} is not ported yet "
-                "(ROADMAP Queue A7); cap it with sp_degree_cap=1")
-        return degree
+        return gang_degree(len(work.replica_ids),
+                           n_devices=len(self.sp_devices),
+                           cap=self.sp_degree_cap)
+
+    def _runner_for(self, degree: int, strategy: str) -> GangSPRunner:
+        key = (degree, strategy)
+        r = self._gang_runners.get(key)
+        if r is None:
+            mesh = make_gang_mesh(degree, self.cfg.num_heads, self.sp_devices)
+            r = GangSPRunner(self.cfg, self.params, mesh, strategy)
+            self._gang_runners[key] = r
+        return r
+
+    def _start_gang(self, req: Request, degree: int) -> GangPrefillState:
+        mesh = make_gang_mesh(degree, self.cfg.num_heads, self.sp_devices)
+        # strategy choice reflects the CLUSTER-scale request length — the
+        # planner's four-combination search (§5.3), not the scale prompt
+        plan = plan_for_gang(self.cfg, req.input_len, mesh, self.hw)
+        runner = self._runner_for(degree, plan.inner_impl)
+        st, _ = self._timed(runner.start, req.rid, self._prompt(req), plan)
+        self.stats["gang_prefills"] += 1
+        return st
+
+    def _gang_quantum(self, st: GangPrefillState) -> Tuple[bool, float]:
+        """One SP quantum: lpq x degree layers at equal per-device compute."""
+        runner = self._runner_for(st.degree, st.plan.inner_impl)
+        lo = st.layer
+        (_, done), d = self._timed(runner.quantum, st, self.lpq * st.degree)
+        self.stats["sp_prefill_quanta"] += 1
+        if st.layer > lo:
+            self.sp_timings.setdefault(st.degree, []).append(
+                d / (st.layer - lo))
+        return done, d
+
+    def _finish_gang(self, work: Work) -> float:
+        """Remaining gang quanta + first-token logits + KV scatter back to
+        the home replica's paged pool (parked host-side when the pool is
+        momentarily full: the scatter retries when the decode binds)."""
+        req = work.requests[0]
+        st = self._gangs[req.rid]
+        runner = self._runner_for(st.degree, st.plan.inner_impl)
+        dt = 0.0
+        while st.layer < self.cfg.num_layers:
+            _, d = self._gang_quantum(st)
+            dt += d
+        logits, d = self._timed(runner.logits, st)
+        dt += d
+        self.generated[req.rid] = [int(logits[0].argmax())]
+        k, v = runner.gather_kv(st, self.device)
+        del self._gangs[req.rid]
+        home = work.replica_ids[0]
+        try:
+            self._engine(home).scatter_kv(req.rid, k, v)
+            self._resident[req.rid] = home
+            self.stats["gang_scatters"] += 1
+        except SlotsFull:
+            self._parked_scatter[req.rid] = (_to_host(k), _to_host(v))
+            self.stats["gang_scatter_deferred"] += 1
+        return dt
 
     def prefix_cache_stats(self) -> Dict[str, int]:
         """Pool-level prefix-cache counters summed across engines, plus the
@@ -499,12 +592,15 @@ class EngineBackend(ExecutionBackend):
         req = work.requests[0]
         eng = self._engine(work.replica_ids[0])
         if work.kind == "long_prefill":
-            self._gang_degree_for(work)     # raises for a gang of 2 or more
-            started = (req.rid in self._psessions or req.rid in self._kv
-                       or req.rid in self._resident
+            degree = self._gang_degree_for(work)
+            started = (req.rid in self._psessions or req.rid in self._gangs
+                       or req.rid in self._kv or req.rid in self._resident
                        or req.rid in self._parked_scatter)
             if not started:
-                self._psessions[req.rid] = self._start_prefill(eng, req)
+                if degree >= 2:
+                    self._gangs[req.rid] = self._start_gang(req, degree)
+                else:
+                    self._psessions[req.rid] = self._start_prefill(eng, req)
         else:                               # long_decode
             if req.rid not in self._dsessions:
                 self._bind_long_decode(req, work.replica_ids[0])
@@ -522,8 +618,8 @@ class EngineBackend(ExecutionBackend):
     def role_change(self, t: float, rid: int, old_role: str,
                     new_role: str) -> None:
         """Verify a coordinator role flip against the real engine: a live
-        decode slot or resident KV on the flipping engine means the policy
-        flipped mid-work — fail loudly."""
+        decode slot or resident (gang-scattered) KV on the flipping engine
+        means the policy flipped mid-work — fail loudly."""
         eng = self._engines.get(rid)
         if eng is not None:
             live = [r for r in eng.slot_rid if r is not None]
@@ -540,7 +636,9 @@ class EngineBackend(ExecutionBackend):
         """Spot eviction of replica `rid`: park every piece of KV physically
         resident on its engine host-side so migrated requests resume
         elsewhere (`_bind_long_decode` re-scatters it), then clear the
-        engine (blocks, slots, prefix cache)."""
+        engine (blocks, slots, prefix cache).  In-flight prefill sessions
+        (`_psessions`, `_gangs`) hold no pool blocks and parked prefills
+        (`_kv`) are engine-agnostic: both move for free at their next use."""
         eng = self._engines.get(rid)
         if eng is None:
             return {}
@@ -553,7 +651,7 @@ class EngineBackend(ExecutionBackend):
             self._parked_scatter[req_rid] = (_to_host(k), _to_host(v))
             del self._dsessions[req_rid]
             parked += 1
-        # resident KV awaiting its decode bind
+        # gang-scattered KV awaiting its decode bind
         for req_rid in [r for r, home in self._resident.items()
                         if home == rid]:
             blocks += len(eng.kvpool.tables.get(req_rid, ()))
@@ -581,11 +679,17 @@ class EngineBackend(ExecutionBackend):
             eng = self._engine(work.replica_ids[0])
             if work.kind == "long_prefill":
                 st = self._psessions.get(req.rid)
+                gst = self._gangs.get(req.rid)
                 if st is not None:
                     left = self.cfg.num_layers - st.layer
                     self._prefill_quanta(eng, st,
                                          st.layer + int(frac * left),
                                          record=True)
+                elif gst is not None:
+                    left = self.cfg.num_layers - gst.layer
+                    target = gst.layer + int(frac * left)
+                    while gst.layer < target:
+                        self._gang_quantum(gst)
             elif work.kind == "long_decode":
                 sess = self._dsessions.get(req.rid)
                 if sess is not None:
@@ -611,6 +715,17 @@ class EngineBackend(ExecutionBackend):
         req = work.requests[0]
         eng = self._engine(work.replica_ids[0])
         if work.kind == "long_prefill":
+            gst = self._gangs.get(req.rid)
+            if gst is not None:
+                done, d = ((True, 0.0) if gst.layer >= self.cfg.num_layers
+                           else self._gang_quantum(gst))
+                if not done:
+                    self.sim.push(t + d, "ENGINE_STEP", work)
+                    return
+                d += self._finish_gang(work)
+                work.duration = t + d - work.start
+                self.sim.push(t + d, "DONE", work)
+                return
             st = self._psessions.get(req.rid)
             if st is None:                  # finished before a late preemption
                 work.duration = max(t - work.start, 0.0)
@@ -656,7 +771,9 @@ class EngineBackend(ExecutionBackend):
     def finish(self, t: float, work: Work) -> None:
         if work.kind == "long_prefill":
             req = work.requests[0]
-            if (req.rid not in self._kv and req.rid not in self._resident
+            if req.rid in self._gangs:
+                self._finish_gang(work)
+            elif (req.rid not in self._kv and req.rid not in self._resident
                     and req.rid not in self._parked_scatter):
                 # run whatever layers remain on the single-replica path
                 self._complete_prefill(self._engine(work.replica_ids[0]), req)

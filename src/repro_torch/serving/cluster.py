@@ -6,12 +6,14 @@ scheduling brain is the same code the analytic simulator runs.  Virtual time
 advances by measured compute (clock="measured"); clock="analytic" reuses the
 cost-model timeline while still executing for real — the cross-backend
 parity mode.  The cost model prices work with `hw`, the H100 SXM's datasheet
-spec by default.
+spec by default, and so does the gang planner.  A tight `target_prefill_s`
+makes longs claim SP groups, which the backend gang-schedules over
+`sp_devices` (by default every visible card) when it holds two or more.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -52,7 +54,8 @@ class MiniCluster:
                  clock: str = "measured", seed: int = 0,
                  enable_sp: bool = True, sp_degree_cap: int = 0,
                  target_prefill_s: float = 15.0,
-                 hw: HardwareSpec = H100_SXM, device="cuda"):
+                 hw: HardwareSpec = H100_SXM, device="cuda",
+                 sp_devices: Optional[Sequence] = None):
         self.cfg = cfg
         self.policy = policy
         self.long_threshold = long_threshold
@@ -71,7 +74,8 @@ class MiniCluster:
             layers_per_quantum=layers_per_quantum, clock=clock,
             max_new_cap=1 << 30,                   # honour each max_new exactly
             token_provider=lambda r: self._tok.get(r.rid), seed=seed,
-            enable_sp=enable_sp, sp_degree_cap=sp_degree_cap, device=device)
+            enable_sp=enable_sp, sp_degree_cap=sp_degree_cap, device=device,
+            sp_devices=sp_devices, hw=hw)
         self._pending: List[ServeRequest] = []
         self.done: List[ServeRequest] = []
         self.summary: Dict = {}

@@ -119,21 +119,35 @@ def test_decode_lane_eviction_parks_and_restores(cluster, engine_backend):
         assert list(engine_backend.generated[rid]) == gen[rid], rid
 
 
-def test_gang_of_two_or_more_raises(engine_backend, monkeypatch):
-    """A fast-SP long over 2+ replicas on a host with 2+ cards would need
-    the gang runner (ROADMAP A7): it raises instead of falling back; on one
-    device the degree collapses to 1, as in the reference."""
+def test_gang_of_two_or_more_raises(cluster, params, engine_backend):
+    """The gang degree is the claimed replicas clipped to the gang's
+    devices (and a cap); on one device it collapses to 1, as in the
+    reference.  A fast-SP long over 2 replicas with two gang devices no
+    longer raises: it runs as a degree-2 gang and generates the tokens of
+    the single-replica path."""
     from repro_torch.core.simulator import Work
-    from repro_torch.serving.backend import gang_degree
+    from repro_torch.sp.gang import gang_degree
+    cfg, cc, em = cluster
     assert gang_degree(4, n_devices=1) == 1
     assert gang_degree(4, n_devices=8, cap=2) == 2
     work = Work(wid=0, kind="long_prefill", replica_ids=[0, 1], requests=[],
                 start=0.0, duration=1.0, sp_mode="fastsp")
+    assert engine_backend.sp_devices == [torch.device("cpu")]
     assert engine_backend._gang_degree_for(work) == 1          # CPU: 1 device
-    monkeypatch.setattr(engine_backend, "device", torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        engine_backend._gang_degree_for(work)
+    long = [Request(rid=0, arrival=0.0, input_len=300_000, output_len=4,
+                    is_long=True)]
+    tokens = {}
+    for sp_devices in (["cpu"], ["cpu"] * 2):
+        be = EngineBackend(cfg, params, max_len=128, layers_per_quantum=1,
+                           clock="analytic", device="cpu",
+                           sp_devices=sp_devices)
+        assert be._gang_degree_for(work) == len(sp_devices)
+        s = Simulator(make_policy("pecsched", cc, em), backend=be).run(
+            copy.deepcopy(long))
+        assert s["long_completed"] == 1
+        assert be.stats["gang_prefills"] == len(sp_devices) - 1
+        tokens[len(sp_devices)] = list(be.generated[0])
+    assert tokens[2] == tokens[1] and len(tokens[2]) == 4
 
 
 def test_reclaim_parks_kv_and_resumes_elsewhere(engine_backend):

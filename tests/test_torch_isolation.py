@@ -102,7 +102,7 @@ def _tiny():
                                    "serve_cli", "quickstart_cli",
                                    "serve_cluster_cli", "engine_overhead_cli",
                                    "engine_stack", "run_spec", "train_cli",
-                                   "train_lm_cli"])
+                                   "train_lm_cli", "sp_devices"])
 def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
     from repro_torch.experiments import runner
     from repro_torch.experiments.spec import ExperimentSpec
@@ -126,6 +126,9 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
             policy="fifo", scenario="smoke_mini", backend="engine")),
         "train_cli": lambda: train.main(["--arch", "mistral_7b", "--steps", "1"]),
         "train_lm_cli": lambda: train_lm.main(["--steps", "1"]),
+        # a gang over cards on a CPU backend still needs the cards
+        "sp_devices": lambda: EngineBackend(cfg, params, device="cpu",
+                                            sp_devices=["cuda"] * 2),
     }
     monkeypatch.setattr(sys, "argv", ["serve", "--layers", "2"])
     with pytest.raises(RuntimeError):
