@@ -114,11 +114,28 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                to its 5e-4 / 5e-5, card = CPU, the ring's last hop
                dropped reading above them; distributed
                decode over 4 ranks of a 4 x 8192 cache against B2 and the
-               plain decode.
+               plain decode;
+19. dryrun   — the dry run's meta account (``launch/dryrun.py``): the
+               80-combo matrix through ``dryrun_all.run_matrix`` (66 OK,
+               14 SKIP, 0 FAIL; how many fit 80 GB per device on each
+               production mesh); the account of the runs the ``train``,
+               ``vlm`` and ``ring`` phases measured, on a one-card host
+               mesh, within ACCOUNT_TOL of their peak memory (the train
+               account without its optimizer moments must fall outside,
+               internvl2_76b at all 80 layers must not fit); and the
+               sequence-sharded decode at full width — llama3_8b's ring
+               serve step at long_500k over 4 ranks (cache_seq over data
+               and model) and mistral_7b with 8 sequences of a 2048-token
+               cache over 4 model ranks — against the unsharded serve step
+               (B2) with its tokens, in bf16 and in f32: logits within
+               SHARDED_REL_TOL (bf16, the plain unsharded decode's
+               readings beside them as the yardstick of one more rounding)
+               and SHARDED_F32_TOL with B2's greedy tokens (f32), no B2
+               launch.
 
 Then one JSON line with every kernel's numbers (launches summed over the
-serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring and
-gang phases; the train phases launch none)
+serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring, gang
+and dryrun phases; the train phases launch none)
 and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
@@ -168,6 +185,20 @@ GANG_REL_TOL = 5e-2
 #: its limits: logits and KV, max |error|
 GANG_F32_LAYERS, GANG_F32_PROMPT = 4, 96
 GANG_F32_TOL = {"logits": 5e-4, "kv": 5e-5}
+#: dryrun: the account's per-device total against the peak memory a phase
+#: measured (torch.cuda.max_memory_allocated after reset_peak_memory_stats),
+#: as a ratio's distance from 1
+ACCOUNT_TOL = 0.10
+#: dryrun: the sharded decode's logits against the unsharded serve step's
+#: (B2), ||got - want|| / ||want|| per row and step; both bf16 at full width
+SHARDED_REL_TOL = 5e-2
+#: dryrun: the same in f32 at full width, where the greedy tokens must agree
+SHARDED_F32_TOL = 1e-4
+#: dryrun: bf16 steps of the planted fault (the merge drops the last rank's
+#: partial), each of which must read above SHARDED_REL_TOL
+SHARDED_FAULT_STEPS = 4
+#: peak GB measured by the train, vlm and ring phases, read by dryrun
+PEAK_GB = {}
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 BF16_FLOPS = 989e12
 
@@ -1034,6 +1065,7 @@ def phase_model(torch, dev, phase, arch, layers=None, cut=None):
         _expect(phase, f"{name} per prefill", pre[name], per_prefill)
         _expect(phase, f"{name} over {N} decode steps", dec[name], per_step * N)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    PEAK_GB[phase] = peak_gb
     # where a decode step's time goes: 4 more steps under the profiler
     prof = _profile_steps(torch, lambda: decode_step(cfg, params, cache, toks[-1]), 4)
     # and a prefill's: one more under the profiler
@@ -1167,6 +1199,7 @@ def phase_train(torch, dev):
         raise AssertionError(f"train: the loss did not fall: {losses}")
     if any(counts.values()):
         raise AssertionError(f"train: a hand kernel ran in a train step: {counts}")
+    PEAK_GB["train"] = out["peak_gb"]
     # where a step's time goes: one more step under the profiler
     cfg = dataclasses.replace(get_config("mistral_7b"), num_layers=out["layers"])
     step = steps.build_train_step(cfg)
@@ -1308,6 +1341,7 @@ def phase_ring(torch, dev):
     if int(cache["len"][0]) != RING_PROMPT + N:
         raise AssertionError(f"ring: cache length {cache['len'].tolist()}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    PEAK_GB["ring"] = peak_gb
     del params, cache, lg
     torch.cuda.empty_cache()
 
@@ -1630,6 +1664,208 @@ def phase_gang(torch, dev):
     return totals
 
 
+def _account_holds(torch, dev):
+    """run_combo on a one-card host mesh for the runs the train, vlm and
+    ring phases measured: each per_device_total within ACCOUNT_TOL of the
+    phase's peak; the train account without its optimizer moments outside
+    it; internvl2_76b at all 80 layers not fitting."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    host = make_host_mesh(1, devices=[dev])
+    vlm_shape = ShapeConfig("vlm_4x2048", 2048, 4, "prefill")
+    cases = {   # name: (arch, shape, layers) as the phase ran it
+        "train": ("mistral_7b", ShapeConfig("train_1x2048", 2048, 1, "train"), None),
+        "vlm": ("internvl2_76b", vlm_shape, 24),
+        "ring": ("llama3_8b", dataclasses.replace(INPUT_SHAPES["long_500k"],
+                                                  seq_len=RING_PROMPT, kind="prefill"), None)}
+    holds = {}
+    for name, (arch, shape, layers) in cases.items():
+        rec = dryrun.run_combo(arch, shape, layers=layers, mesh=host)
+        mem = rec["memory"]
+        ratio = mem["per_device_total"] / 1e9 / PEAK_GB[name]
+        if abs(ratio - 1) > ACCOUNT_TOL:
+            raise AssertionError(f"dryrun: the {name} account {mem['per_device_total'] / 1e9:.2f} "
+                                 f"GB is {ratio:.3f} x the measured {PEAK_GB[name]:.2f} GB")
+        holds[name] = dict(arch=arch, layers=rec["layers"], kind=rec["kind"],
+                           account_gb=mem["per_device_total"] / 1e9,
+                           arguments_gb={k: v / 1e9 for k, v in mem["arguments"].items()},
+                           temp_gb=mem["temp_size_in_bytes"] / 1e9,
+                           measured_gb=PEAK_GB[name], ratio=ratio,
+                           account_s=rec["account"]["seconds"])
+        if name == "train":     # planted fault: the optimizer moments left out
+            fault = (mem["per_device_total"] - mem["arguments"]["opt"]) / 1e9 / PEAK_GB[name]
+            if abs(fault - 1) <= ACCOUNT_TOL:
+                raise AssertionError(f"dryrun: the train account without its moments "
+                                     f"reads {fault:.3f}, inside the limit")
+            holds[name]["without_moments_ratio"] = fault
+    full = dryrun.run_combo("internvl2_76b", vlm_shape, mesh=host)
+    if full["memory"]["fits"]:
+        raise AssertionError("dryrun: internvl2_76b at 80 layers fits one card")
+    holds["vlm_80_layers"] = dict(
+        layers=full["layers"], fits=False,
+        weights_gb=full["memory"]["arguments"]["params"] / 1e9,
+        account_gb=full["memory"]["per_device_total"] / 1e9)
+    return holds
+
+
+def _rel_norms(got, want):
+    """Per step, the largest ||got - want|| / ||want|| over the batch's rows."""
+    from repro_torch.kernels.checks import rel_err
+    return [rel_err(g[None], w[None].float()) for (_, g), (_, w) in zip(got, want)]
+
+
+def _same_tokens(got, want):
+    """(steps whose greedy tokens all agree, rows that agree)."""
+    eq = [g.argmax(-1) == w.argmax(-1) for (_, g), (_, w) in zip(got, want)]
+    return sum(int(e.all()) for e in eq), sum(int(e.sum()) for e in eq)
+
+
+def _dropping_last_rank(mesh):
+    """`mesh` with a psum that leaves out the last rank's addend: the
+    sequence-sharded decode's merge then loses that rank's partial (its
+    keys' share of both the weighted sum and the normaliser)."""
+    import torch
+    from repro_torch.sp.common import GangMesh
+
+    class Dropping(GangMesh):
+        def psum(self, xs, axes):
+            return super().psum(xs[:-1] + [torch.zeros_like(xs[-1])], axes)
+    return Dropping(mesh.devices, tuple(mesh.shape.values()), mesh.axis_names)
+
+
+def _sharded_decode(torch, dev, arch, shape, prompt, model_ranks, dtype):
+    """Prefill `prompt` tokens at full width in `dtype`, then N serve steps
+    from copies of that cache: without rules (B2), the greedy run; with the
+    sequence-sharded cache over a host mesh of 4 ranks on the card, fed B2's
+    tokens; in bf16 also without rules on the plain decode (impl="torch"),
+    fed them too.  bf16: the sharded logits within SHARDED_REL_TOL of B2's
+    at every step; one more rounding of every attention output moves
+    random-weight logits by ~2 % over 32 layers and flips near-tied greedy
+    tokens, so the plain decode's readings stand beside them as the
+    yardstick; and a planted fault, the sharded decode over a mesh whose
+    merge drops the last rank's partial (`_dropping_last_rank`), must read
+    above SHARDED_REL_TOL in each of its SHARDED_FAULT_STEPS steps.  f32:
+    within SHARDED_F32_TOL and B2's greedy token in every step and row.  No
+    B2 launch off the B2 run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.sharding import standard_rules
+
+    N = 32
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    mesh = make_host_mesh(model_ranks, devices=[dev] * 4)
+    seq_axes = standard_rules(mesh, long_context=shape.global_batch == 1).rules["cache_seq"]
+    params = init_params(cfg, seed=0, device=dev)
+    max_len, _ = steps.cache_lengths(cfg, shape)
+    toks = torch.randint(0, cfg.vocab_size, (shape.global_batch, prompt),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    (lg, cache), _, pre = _run_counted(torch, lambda: steps.build_prefill_step(cfg, shape)(
+        params, {"tokens": toks}, init_cache(cfg, shape.global_batch, max_len, device=dev)))
+    _expect("dryrun", f"{arch} flash_attention per prefill", pre["flash_attention"],
+            cfg.num_layers)
+    runs = {"b2": steps.build_serve_step(cfg, shape),
+            "sharded": steps.build_serve_step(cfg, shape, mesh=mesh)}
+    if dtype == "bfloat16":
+        runs["plain"] = steps.build_serve_step(cfg, shape, impl="torch")
+        fault_step = steps.build_serve_step(cfg, shape, mesh=_dropping_last_rank(mesh))
+        fault_cache = {k: v.clone() for k, v in cache.items()}
+    caches = [cache] + [{k: v.clone() for k, v in cache.items()} for _ in runs][1:]
+
+    def run(step, c, inputs, n=N):
+        out, last = [], lg
+        for i in range(n):
+            tok = last.argmax(-1) if inputs is None else inputs[i]
+            last, _ = step(params, c, tok)
+            out.append((tok, last))
+        return out
+    out, forced = {}, None
+    launches = dict(pre)
+    for (name, step), c in zip(runs.items(), caches):
+        out[name], secs, counts = _run_counted(torch, lambda: run(step, c, forced))
+        forced = forced or [t for t, _ in out[name]]
+        _expect("dryrun", f"{arch} {dtype} flash_decode over {N} {name} steps",
+                counts["flash_decode"], cfg.num_layers * N if name == "b2" else 0)
+        out[name + "_ms_per_step"] = 1e3 * secs / N
+        launches = {k: launches[k] + counts[k] for k in launches}
+    errs = _rel_norms(out["sharded"], out["b2"])
+    steps_same, rows_same = _same_tokens(out["sharded"], out["b2"])
+    res = dict(arch=arch, dtype=dtype, layers=cfg.num_layers, batch=shape.global_batch,
+               prompt_tokens=prompt, cache_len=max_len, ring=steps.ring_buffer(cfg, shape),
+               mesh=dict(mesh.shape), cache_seq=list(seq_axes), steps=N,
+               rel_err_first=errs[0], rel_err_max=max(errs),
+               steps_tokens_same=steps_same, rows_tokens_same=rows_same,
+               rows=N * shape.global_batch,
+               **{k: v for k, v in out.items() if k.endswith("_ms_per_step")})
+    if dtype == "bfloat16":
+        if max(errs) > SHARDED_REL_TOL:
+            raise AssertionError(f"dryrun: {arch} sharded decode against B2: rel-norm "
+                                 f"{max(errs):.3e} (tol {SHARDED_REL_TOL})")
+        p_steps, p_rows = _same_tokens(out["plain"], out["b2"])
+        fault = _rel_norms(run(fault_step, fault_cache, forced, SHARDED_FAULT_STEPS),
+                           out["b2"])
+        del fault_cache
+        if min(fault) <= SHARDED_REL_TOL:
+            raise AssertionError(f"dryrun: {arch} sharded decode with the last rank's "
+                                 f"partial dropped reads {fault} against B2, not above "
+                                 f"{SHARDED_REL_TOL}")
+        res.update(dropped_rank_rel_err=fault,
+                   plain_vs_b2_rel_err_max=max(_rel_norms(out["plain"], out["b2"])),
+                   sharded_vs_plain_rel_err_max=max(_rel_norms(out["sharded"], out["plain"])),
+                   plain_steps_tokens_same=p_steps, plain_rows_tokens_same=p_rows)
+    elif max(errs) > SHARDED_F32_TOL or steps_same != N:
+        raise AssertionError(f"dryrun: {arch} f32 sharded decode against B2: rel-norm "
+                             f"{max(errs):.3e} (tol {SHARDED_F32_TOL}), the same greedy "
+                             f"tokens in {steps_same} of {N} steps")
+    del params, caches, cache, lg, out
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def phase_dryrun(torch, dev, smi):
+    """The dry run: the matrix, the account against the card's measured
+    peaks, and the sequence-sharded decode at full width (module doc, 19)."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, dryrun_all
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    recs = dryrun_all.run_matrix(out_dir=ROOT / "build" / "dryrun_torch",
+                                 log=lambda line: None)
+    matrix_s = time.perf_counter() - t0
+    n = dryrun_all.summary(recs)
+    if (n["ok"], n["skipped"], n["failed"]) != (66, 14, 0):
+        raise AssertionError(f"dryrun: the matrix reads {n}, not 66 ok / 14 skipped")
+    ok = [r for r in recs if r.get("ok")]
+    largest = max(ok, key=lambda r: r["memory"]["per_device_total"])
+    matrix = dict(n, seconds=matrix_s,
+                  fit_80gb={m: sum(r["memory"]["fits"] for r in ok if r["mesh"] == m)
+                            for m in ("pod16x16", "pod2x16x16")},
+                  ok_per_mesh={m: sum(r["mesh"] == m for r in ok)
+                               for m in ("pod16x16", "pod2x16x16")},
+                  largest_per_device_gb=largest["memory"]["per_device_total"] / 1e9,
+                  largest=dryrun.tag(largest))
+    holds = _account_holds(torch, dev)
+    decode, launches = {}, dict.fromkeys(_counters(), 0)
+    for name, args in (
+            ("llama3_8b_long_500k", ("llama3_8b", INPUT_SHAPES["long_500k"], RING_PROMPT, 1)),
+            ("mistral_7b_8x2048", ("mistral_7b", ShapeConfig("decode_8x2048", 2048, 8, "decode"),
+                                   2048 - 32, 4))):
+        for dtype in ("bfloat16", "float32"):
+            decode[f"{name}_{dtype}"], counts = _sharded_decode(torch, dev, *args, dtype)
+            for k, v in counts.items():
+                launches[k] += v
+    _say("dryrun", nvidia_smi=smi, matrix=matrix, account_tol=ACCOUNT_TOL,
+         account=holds, sharded_rel_tol=SHARDED_REL_TOL, sharded_decode=decode,
+         launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1703,6 +1939,9 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in phase_gang(torch, dev).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in phase_dryrun(torch, dev, smi).items():
         launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, replay
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128)
@@ -89,7 +89,7 @@ def torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for q0 in range(0, sq, q_block):
         args = (qf[:, :, q0:q0 + q_block], kf, vf, eff_len, q0)
         o, lse = (checkpoint(_q_column, *args, use_reentrant=False, **kw) if remat
-                  else _q_column(*args, **kw))
+                  else replay.call("q_column", _q_column, *args, **kw))
         outs.append(o)
         lses.append(lse)
     if not outs:                                   # Sq = 0

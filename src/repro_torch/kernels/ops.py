@@ -16,6 +16,7 @@
 from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import replay
 from repro_torch.kernels.flash_attention import flash_attention, torch_attention
 from repro_torch.kernels.flash_decode import flash_decode, torch_decode
 from repro_torch.kernels.ssd_kernel import ssd_scan as _ssd_kernel
@@ -60,7 +61,8 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk=256, init_state=None,
     if impl == "auto":
         return _ssd_kernel(x, dt, A, B, C, D, chunk=chunk, **kw)
     if impl == "torch":
-        return torch_ssd_scan(x, dt, A, B, C, D, chunk=chunk, **kw)
+        return replay.call("ssd_scan", torch_ssd_scan, x, dt, A, B, C, D,
+                           chunk=chunk, **kw)
     if impl == "ref":
         return _ref.ssd_reference(x, dt, A, B, C, D, **kw)
     raise ValueError(f"unknown impl {impl}")

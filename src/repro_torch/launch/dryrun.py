@@ -1,0 +1,377 @@
+"""Dry run, the counterpart of the reference's ``launch/dryrun.py``: for one
+(architecture x input shape x mesh), whether the step fits a device and
+what it computes, without allocating it.
+
+The reference lowers and compiles the step for 512 fake XLA devices and
+reads the compiler's memory and cost analyses.  The port has no partitioner;
+its analogue is an account of the step on the "meta" device, where tensors
+have shapes and dtypes and no storage:
+
+* arguments: the per-device bytes of what the step takes (train: params,
+  optimizer state, batch; prefill: params, batch, cache; serve: params,
+  cache, token), from the spec trees of `launch/shardings.py` — exact;
+* temp: the peak live bytes of the storages the step creates while it runs
+  on meta tensors (``impl="torch"``, as the reference lowers with "xla"),
+  counted under a dispatch mode when created and freed on release (views
+  and in-place writes add nothing: the port writes the cache in place),
+  less the new outputs'.  The single controller holds whole tensors, so on
+  a mesh of n devices this is the whole step's peak divided by n: an
+  estimate, and the record says so;
+* output / alias: the reference's donations (params and optimizer for
+  train, the cache for prefill and serve): alias is the per-device bytes
+  of the donated leaves the step returns in place, output that plus the new
+  outputs' bytes / n;
+* per_device_total = arg + temp + max(out - alias, 0), and fits against
+  `shardings.HBM_PER_DEVICE` (80 GB, one H100);
+* cost: FLOPs (``torch.utils.flop_counter``) and the bytes every non-view
+  ATen op reads and writes, unfused, over the whole step (every device).
+
+The prefill and serve steps run at full depth: every q-column of the plain
+attention and every plain SSD scan after the first of its shapes is
+replayed from the first one's account (`_Account.replaying`; prefill_32k
+runs 1,024 tiles per attention layer, zamba2's scan 512 chunks per layer).
+A train step runs them under autograd, which a replay cannot join, so it
+runs at 2 and 3 units of depth (a unit: one
+layer; a hybrid segment of `attn_every` Mamba2 layers and the shared
+block; an audio encoder and decoder layer in the model's ratio) and its
+temp, new outputs, FLOPs and bytes are extrapolated linearly to the full
+depth: the peak (in the backward or the optimizer update) grows by the
+same bytes with every unit.  Collective bytes, which the reference parses
+from partitioned HLO, have no counterpart: the record carries
+``"collectives": null``.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
+        --shape train_4k [--multi-pod] [--out build/dryrun_torch]
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import functools
+import json
+import math
+import time
+import traceback
+import weakref
+from pathlib import Path
+from typing import Any, Dict, Optional, Union
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
+from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.configs import INPUT_SHAPES, get_config
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels import replay as kernel_replay
+from repro_torch.launch import shardings as shd
+from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import make_production_mesh
+
+OUT = Path("build/dryrun_torch")
+COLLECTIVES_REASON = ("the port has no partitioner: the reference parses collective "
+                      "bytes from XLA's partitioned HLO")
+
+
+def _tensors(tree):
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+class _Account(TorchDispatchMode):
+    """Under this mode: `flops` sums the FLOP formulas of
+    ``torch.utils.flop_counter`` (matmuls) over every ATen op;
+    `bytes_accessed` the operand and result bytes of every non-view op;
+    `peak` is the most bytes the storages created under the mode held at
+    once.  A storage counts once, from the op that creates it until its
+    last tensor is released; the storages of `args` (the step's arguments)
+    never count."""
+
+    def __init__(self, args):
+        super().__init__()
+        self._args = {t.untyped_storage()._cdata for t in _tensors(args)}
+        self._owned: Dict[int, tuple] = {}    # storage id -> (weakref, bytes)
+        self.live = self.peak = self.bytes_accessed = self.flops = 0
+
+    def _free(self, sid: int, n: int) -> None:
+        self.live -= n
+        self._owned.pop(sid, None)
+
+    def _adopt(self, t: torch.Tensor) -> None:
+        st_ = t.untyped_storage()
+        sid = st_._cdata
+        if sid in self._args or sid in self._owned:
+            return
+        n = st_.nbytes()
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        self._owned[sid] = (weakref.ref(st_, lambda _, s=sid, n=n: self._free(s, n)), n)
+
+    def owned_bytes(self, tensors) -> int:
+        """Bytes of the distinct created storages behind `tensors`."""
+        sids = {t.untyped_storage()._cdata for t in tensors}
+        return sum(self._owned[s][1] for s in sids if s in self._owned)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func._overloadpacket in flop_registry:
+            self.flops += flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
+        results = _tensors(out)
+        if not func.is_view:
+            self.bytes_accessed += sum(t.numel() * t.element_size()
+                                       for t in _tensors((args, kwargs)) + results)
+        for t in results:
+            self._adopt(t)
+        return out
+
+    @contextlib.contextmanager
+    def replaying(self):
+        """Within (through the kernels' hook, `kernels/replay.py`): a call
+        of the plain attention's q-column or the plain SSD scan made
+        without autograd on "meta" tensors whose shapes and dtypes, and
+        whose keyword options the values, equal a call already run is
+        replayed from that call's account — its FLOPs and bytes added, its
+        rise above the live bytes at entry held against the peak, fresh
+        outputs of its shapes adopted — instead of run again.  Both give
+        fresh outputs, and their other positional arguments (a column's
+        query offset) move values only."""
+        seen: Dict[tuple, dict] = {}
+
+        def sig(v):
+            return (tuple(v.shape), v.dtype, v.device) if torch.is_tensor(v) else v
+
+        def hook(name, run, args, kw):
+            tensors = _tensors((args, kw))
+            if torch.is_grad_enabled() or any(t.device.type != "meta" for t in tensors):
+                return run(*args, **kw)
+            key = (name, tuple(sig(a) for a in args if torch.is_tensor(a)),
+                   tuple(sorted((k, sig(v)) for k, v in kw.items())))
+            if key not in seen:
+                live, peak, flops, nbytes = self.live, self.peak, self.flops, self.bytes_accessed
+                self.peak = live
+                out = run(*args, **kw)
+                seen[key] = dict(rise=self.peak - live, flops=self.flops - flops,
+                                 bytes=self.bytes_accessed - nbytes,
+                                 outs=[(t.shape, t.dtype) for t in _tensors(out)],
+                                 tree=tree_flatten(out)[1])
+                self.peak = max(self.peak, peak)
+                return out
+            rec = seen[key]
+            self.peak = max(self.peak, self.live + rec["rise"])
+            self.flops += rec["flops"]
+            self.bytes_accessed += rec["bytes"]
+            with _disable_current_modes():
+                outs = [torch.empty(s, dtype=d, device="meta") for s, d in rec["outs"]]
+            for t in outs:
+                self._adopt(t)
+            return tree_unflatten(outs, rec["tree"])
+        with kernel_replay.replay_with(hook):
+            yield
+
+
+def _units(cfg: ModelConfig):
+    """(units of depth in cfg, cfg cut to k units)."""
+    if cfg.family == "hybrid":
+        return (cfg.num_layers // cfg.attn_every,
+                lambda k: dataclasses.replace(cfg, num_layers=k * cfg.attn_every))
+    if cfg.family == "audio":
+        g = math.gcd(cfg.encoder_layers, cfg.num_layers)
+        return g, lambda k: dataclasses.replace(
+            cfg, encoder_layers=k * cfg.encoder_layers // g,
+            num_layers=k * cfg.num_layers // g)
+    return cfg.num_layers, lambda k: dataclasses.replace(cfg, num_layers=k)
+
+
+def _step_args(cfg: ModelConfig, shape: ShapeConfig):
+    """(step, its arguments, the donated arguments by name) on meta."""
+    params, batch = st.params_structs(cfg), st.batch_structs(cfg, shape)
+    if shape.kind == "train":
+        opt = st.opt_structs(params)
+        return (st.build_train_step(cfg), (params, opt, batch),
+                {"params": params, "opt": opt})
+    cache = st.cache_structs(cfg, shape)
+    if shape.kind == "prefill":
+        return (st.build_prefill_step(cfg, shape, impl="torch"),
+                (params, batch, cache), {"cache": cache})
+    return (st.build_serve_step(cfg, shape, impl="torch"),
+            (params, cache, batch["token"]), {"cache": cache})
+
+
+def _norm(path) -> tuple:
+    """A leaf's path without list indices: one name for every layer's."""
+    return tuple(c for c in path if not isinstance(c, int))
+
+
+def _run(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """One meta run of the step: global temp, new-output bytes, FLOPs,
+    bytes accessed, and the donated leaves (by path) it does not return in
+    place."""
+    fn, args, donated = _step_args(cfg, shape)
+    donated_sids = []       # before the step, which may rebind dict entries
+    shd.walk(lambda path, x, n: donated_sids.append(
+        (_norm(path), x.untyped_storage()._cdata)), donated)
+    with _Account(args) as acc, acc.replaying():
+        out = fn(*args)
+    out_leaves = _tensors(out)
+    out_sids = {t.untyped_storage()._cdata for t in out_leaves}
+    new_out = acc.owned_bytes(out_leaves)
+    replaced = {path for path, sid in donated_sids if sid not in out_sids}
+    return {"temp": acc.peak - new_out, "new_out": new_out,
+            "flops": acc.flops, "bytes": acc.bytes_accessed,
+            "replaced": replaced}
+
+
+@functools.lru_cache(maxsize=8)
+def step_account(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """`_run` of the step at the config's depth; a train step deeper than
+    3 units at 2 and 3 units, extrapolated linearly.  The same on every
+    mesh, so the matrix's second mesh reads it from the cache (callers must
+    not mutate it)."""
+    n, cut = _units(cfg)
+    if shape.kind != "train" or n <= 3:
+        return dict(_run(cfg, shape), units=n, units_run=[n])
+    two, three = _run(cut(2), shape), _run(cut(3), shape)
+    out = {k: three[k] + (n - 3) * (three[k] - two[k])
+           for k in ("temp", "new_out", "flops", "bytes")}
+    return dict(out, replaced=two["replaced"], units=n, units_run=[2, 3])
+
+
+def mesh_tag(mesh) -> str:
+    """pod16x16 / pod2x16x16 for the production meshes, host<d>x<m> else."""
+    kind = "pod" if mesh.devices[0].type == "meta" else "host"
+    return kind + "x".join(str(mesh.shape[a]) for a in mesh.axis_names)
+
+
+def run_combo(arch: str, shape: Union[str, ShapeConfig], *, multi_pod: bool = False,
+              out_dir: Optional[Path] = None, layers: Optional[int] = None,
+              mesh=None) -> Dict[str, Any]:
+    """The record of one (arch, shape, mesh): the reference's keys (arch,
+    shape, mesh, kind, ok / skipped + reason, fsdp, memory, cost,
+    n_devices) with the port's account.  `shape` is a name of INPUT_SHAPES
+    or a ShapeConfig; `layers` cuts the depth; `mesh` (default: the
+    production mesh) may be a host mesh.  Written to out_dir/<tag>.json
+    when out_dir is given."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+    mesh = mesh if mesh is not None else make_production_mesh(multi_pod=multi_pod)
+    rec: Dict[str, Any] = {"arch": arch, "shape": shape.name, "mesh": mesh_tag(mesh),
+                           "kind": shape.kind, "ok": False}
+    ok, reason = st.supports_shape(cfg, shape)
+    if not ok:
+        rec.update(skipped=True, reason=reason)
+        return _write(rec, out_dir)
+    t0 = time.perf_counter()
+    rec.update(seq_len=shape.seq_len, global_batch=shape.global_batch,
+               layers=cfg.num_layers)
+    fsdp = shd.needs_fsdp(cfg, mesh, shape.kind)
+    rec["fsdp"] = fsdp
+    params = st.params_structs(cfg)
+    pspecs = shd.param_specs(cfg, params, mesh, fsdp=fsdp)
+    batch = st.batch_structs(cfg, shape)
+    bspecs = shd.batch_specs(cfg, shape, mesh)
+    args = {"params": (params, pspecs)}
+    if shape.kind == "train":
+        opt = st.opt_structs(params)
+        args.update(opt=(opt, shd.opt_specs(pspecs, opt)), batch=(batch, bspecs))
+    else:
+        cache = st.cache_structs(cfg, shape)
+        args["cache"] = (cache, shd.cache_specs(cfg, cache, mesh,
+                                                global_batch=shape.global_batch))
+        if shape.kind == "prefill":
+            args["batch"] = (batch, bspecs)
+        else:
+            args["token"] = (batch["token"], bspecs["token"])
+    arg_bytes = {k: shd.per_device_bytes(t, s, mesh) for k, (t, s) in args.items()}
+    acct = step_account(cfg, shape)
+    n_dev = mesh.n_ranks
+    donated = ("params", "opt") if shape.kind == "train" else ("cache",)
+    in_place = []       # the donated leaves the step writes, not replaces
+
+    def donated_leaf(path, x, n, spec):
+        if _norm((name,) + path) not in acct["replaced"]:
+            in_place.append(shd.per_device_bytes(x, spec, mesh))
+    for name in donated:
+        shd.walk(donated_leaf, *args[name])
+    alias = sum(in_place)
+    arg = sum(arg_bytes.values())
+    temp = acct["temp"] // n_dev
+    out = alias + acct["new_out"] // n_dev
+    total = arg + temp + max(out - alias, 0)
+    rec["memory"] = {
+        "argument_size_in_bytes": arg, "output_size_in_bytes": out,
+        "alias_size_in_bytes": alias, "temp_size_in_bytes": temp,
+        "per_device_total": total, "fits": total <= shd.HBM_PER_DEVICE,
+        "arguments": arg_bytes,
+        "temp_scope": (f"the whole step's peak live intermediates on meta / {n_dev} "
+                       "devices (an estimate)" if n_dev > 1 else
+                       "the step's peak live intermediates on meta")}
+    rec["hbm_per_device"] = shd.HBM_PER_DEVICE
+    rec["cost"] = {"flops": float(acct["flops"]), "bytes accessed": float(acct["bytes"]),
+                   "scope": "the whole step over every device; bytes unfused"}
+    rec["collectives"] = None
+    rec["collectives_reason"] = COLLECTIVES_REASON
+    rec["account"] = {"units": acct["units"], "units_run": acct["units_run"],
+                      "seconds": time.perf_counter() - t0}
+    rec["ok"] = True
+    rec["n_devices"] = n_dev
+    return _write(rec, out_dir)
+
+
+def _write(rec: Dict[str, Any], out_dir: Optional[Path]) -> Dict[str, Any]:
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"{tag(rec)}.json").write_text(json.dumps(rec, indent=1))
+    return rec
+
+
+def tag(rec: Dict[str, Any]) -> str:
+    return f"{rec['arch']}.{rec['shape']}.{rec['mesh']}"
+
+
+def run_logged(arch: str, shape: str, *, multi_pod: bool, out_dir: Optional[Path],
+               log=print) -> Dict[str, Any]:
+    """`run_combo`, a failure recorded as a FAIL record with its traceback,
+    and the reference's OK / SKIP / FAIL line."""
+    t0 = time.perf_counter()
+    try:
+        rec = run_combo(arch, shape, multi_pod=multi_pod, out_dir=out_dir)
+    except Exception as e:     # recorded and counted as FAIL by the caller
+        rec = _write({"arch": arch, "shape": shape,
+                      "mesh": "pod2x16x16" if multi_pod else "pod16x16", "ok": False,
+                      "error": f"{type(e).__name__}: {e}",
+                      "traceback": traceback.format_exc()[-4000:]}, out_dir)
+    secs = time.perf_counter() - t0
+    if rec.get("ok"):
+        mem = rec["memory"]
+        log(f"OK   {tag(rec):60s} {secs:6.1f}s mem/dev={mem['per_device_total'] / 1e9:.2f}GB "
+            f"fits={mem['fits']} flops={rec['cost']['flops']:.3e}")
+    elif rec.get("skipped"):
+        log(f"SKIP {tag(rec):60s} {rec['reason']}")
+    else:
+        log(f"FAIL {tag(rec):60s} {rec['error']}")
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True, choices=list(INPUT_SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--out", default=str(OUT))
+    args = ap.parse_args(argv)
+    rec = run_logged(args.arch, args.shape, multi_pod=args.multi_pod,
+                     out_dir=Path(args.out))
+    if rec.get("ok"):
+        print(json.dumps(rec["memory"], indent=1))
+        print(json.dumps(rec["cost"], indent=1))
+    elif not rec.get("skipped"):
+        print(rec["traceback"])
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

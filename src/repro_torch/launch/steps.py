@@ -7,7 +7,15 @@ The train step differentiates the plain PyTorch attention and SSD
 kernels have no backward, nor do the reference's Pallas kernels.  The
 prefill and serve steps run the hand kernels (``impl="auto"``); the serve
 step of a sliding-window model at the long_500k shape decodes into a ring
-buffer of one window.
+buffer of one window.  Each builder takes the reference's ``mesh=``: the
+step then runs under `standard_rules` of that mesh (train with fsdp, the
+serving steps with long_context when the batch is one sequence), which
+sends the serve step's decode attention over a sharded cache sequence to
+the sequence-sharded decode (`layers._cached_decode_attention`).
+
+`params_structs`, `opt_structs`, `batch_structs` and `cache_structs` are
+the reference's ``ShapeDtypeStruct`` helpers: the same trees on the "meta"
+device, shapes and dtypes without storage (`launch/dryrun.py`).
 """
 from __future__ import annotations
 
@@ -17,7 +25,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import model as mdl
-from repro_torch.training.optimizer import adamw_update
+from repro_torch.models.sharding import standard_rules, use_rules
+from repro_torch.training.optimizer import adamw_init, adamw_update
 
 AUDIO_DECODER_TRAIN_LEN = 512   # transcript length for enc-dec train batches
 AUDIO_SELF_CACHE = 1024         # decoder self-KV budget (outputs <= 800)
@@ -46,6 +55,50 @@ def cache_lengths(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[int, int]:
     return max_len, 0
 
 
+def batch_structs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The step's batch on "meta": tokens (and labels) int32; vlm's patch
+    embeddings and audio's frames in the model's dtype; decode one token
+    per sequence."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    i32, act = torch.int32, getattr(torch, cfg.dtype)
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            P = min(cfg.frontend_tokens, S // 2)
+            out = {"tokens": sds((B, S - P), i32), "embeds": sds((B, P, cfg.d_model), act)}
+        elif cfg.family == "audio":
+            # the encoder takes the frames; the decoder teacher-forces a
+            # transcript (train) or starts from BOS (prefill)
+            dec = AUDIO_DECODER_TRAIN_LEN if shape.kind == "train" else 1
+            out = {"tokens": sds((B, dec), i32), "frames": sds((B, S, cfg.d_model), act)}
+        else:
+            out = {"tokens": sds((B, S), i32)}
+        if shape.kind == "train":
+            out["labels"] = sds(out["tokens"].shape, i32)
+        return out
+    return {"token": sds((B,), i32)}
+
+
+def cache_structs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    max_len, enc_len = cache_lengths(cfg, shape)
+    return mdl.init_cache(cfg, shape.global_batch, max_len, enc_len=enc_len,
+                          device="meta")
+
+
+def params_structs(cfg: ModelConfig):
+    return mdl.init_params(cfg, device="meta")
+
+
+def opt_structs(params):
+    return adamw_init(params)
+
+
+def _rules(mesh, **kw):
+    return standard_rules(mesh, **kw) if mesh is not None else None
+
+
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
                    impl: str = "torch", remat: bool = True):
     """(loss, gradients as a tree like params): `loss_fn` and its gradient
@@ -63,29 +116,41 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
     return loss.detach(), mdl.tree_like(params, grads)
 
 
-def build_train_step(cfg: ModelConfig, *, impl: str = "torch", remat: bool = True):
+def build_train_step(cfg: ModelConfig, *, impl: str = "torch", remat: bool = True,
+                     mesh=None):
     """train_step(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}): `loss_and_grads` with remat, then one AdamW update in
-    place."""
+    place.  With `mesh`, the step runs under its fsdp rules, as the
+    reference's; in the port they steer nothing (a train step never
+    decodes, and the single controller holds whole tensors), so a host
+    mesh over every visible card does not shard the training."""
+    rules = _rules(mesh, fsdp=True)
+
     def train_step(params, opt_state, batch: Dict[str, Any]):
-        loss, grads = loss_and_grads(cfg, params, batch, impl=impl, remat=remat)
-        params, opt_state, info = adamw_update(params, grads, opt_state)
-        return params, opt_state, {"loss": loss, "grad_norm": info["grad_norm"]}
+        with use_rules(rules):
+            loss, grads = loss_and_grads(cfg, params, batch, impl=impl, remat=remat)
+            params, opt_state, info = adamw_update(params, grads, opt_state)
+            return params, opt_state, {"loss": loss, "grad_norm": info["grad_norm"]}
     return train_step
 
 
-def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *, impl: str = "auto"):
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *, impl: str = "auto",
+                       mesh=None):
+    rules = _rules(mesh, long_context=(shape.global_batch == 1))
+
     def prefill_step(params, batch, cache):
-        with torch.no_grad():
+        with use_rules(rules), torch.no_grad():
             return mdl.prefill(cfg, params, batch, cache, impl=impl)
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, *, impl: str = "auto"):
+def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, *, impl: str = "auto",
+                     mesh=None):
     ring = ring_buffer(cfg, shape)
+    rules = _rules(mesh, long_context=(shape.global_batch == 1))
 
     def serve_step(params, cache, token):
-        with torch.no_grad():
+        with use_rules(rules), torch.no_grad():
             return mdl.decode_step(cfg, params, cache, token, impl=impl,
                                    ring_buffer=ring)
     return serve_step

@@ -3,8 +3,10 @@
 default, as the reference) or, with ``--full``, the full config in its own
 dtype, on the card unless ``--device cpu``.  ``--layers N`` cuts the depth
 (of the reduced config, or of the full one at full width) and is printed.
-Each step is `steps.build_train_step`: the loss with remat over the plain
-PyTorch attention and SSD, its gradients, one AdamW update.
+Each step is `steps.build_train_step` under the sharding rules of a host
+mesh (`launch/mesh.make_host_mesh`: every visible card, or the CPU), as the
+reference's launcher: the loss with remat over the plain PyTorch attention
+and SSD, its gradients, one AdamW update.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mistral_7b --full
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b --device cpu --steps 5
@@ -25,6 +27,7 @@ from repro_torch.configs import PORTED_ARCH_IDS, get_config, reduced_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.hardware import H100_SXM, resolve_device
 from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import init_params, param_count
 from repro_torch.training import adamw_init
 
@@ -62,12 +65,13 @@ def step_flops(cfg: ModelConfig, params, batch: int, seq: int) -> Optional[float
 
 
 def train(cfg: ModelConfig, params, *, steps: int, batch: int, seq: int, device,
-          same_batch: bool = False, seed: int = 0, log=print) -> Dict[str, Any]:
+          same_batch: bool = False, seed: int = 0, mesh=None,
+          log=print) -> Dict[str, Any]:
     """`steps` train steps; a fresh batch each step (the reference's loop)
     or, with `same_batch`, the first one repeated.  Returns the losses,
     gradient norms and wall seconds of each step (to the device's end)."""
     opt = adamw_init(params)
-    step_fn = st.build_train_step(cfg, remat=True)
+    step_fn = st.build_train_step(cfg, remat=True, mesh=mesh)
     rng = np.random.default_rng(seed)
     data = make_batch(cfg, batch, seq, rng, device)
     losses: List[float] = []
@@ -112,14 +116,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                                   dtype="float32")
     cut = (f", {cfg.num_layers} of {full.num_layers} layers"
            if args.full and cfg.num_layers != full.num_layers else "")
+    mesh = make_host_mesh(devices=None if device.type == "cuda" else [device])
     print(f"training {cfg.name} ({cfg.num_layers}L d={cfg.d_model} {cfg.dtype}"
-          f"{cut}) on {device}")
+          f"{cut}) on {device}, mesh {mesh.shape} ({mesh.n_ranks} devices)")
     params = init_params(cfg, seed=0, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     r = train(cfg, params, steps=args.steps, batch=args.batch, seq=args.seq,
-              device=device, same_batch=args.same_batch)
+              device=device, same_batch=args.same_batch, mesh=mesh)
     wall = time.perf_counter() - t0
     timed = r["step_s"][1:] or r["step_s"]       # the first step warms up
     step_s = statistics.median(timed)

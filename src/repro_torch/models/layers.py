@@ -14,6 +14,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.sharding import current_rules, divides
+from repro_torch.sp.common import as_axes
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -134,9 +136,27 @@ def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         eff_len, window = torch.clamp(cache_len + 1, max=S_max), 0
     else:
         eff_len, window = cache_len + 1, sliding_window
-    o = ops.decode_attention(q, cache.k, cache.v, eff_len,
-                             sliding_window=window, impl=impl)
+    o = _cached_decode_attention(q, cache.k, cache.v, eff_len, window, impl)
     return linear(o.reshape(B, H * hd), p["wo"]), cache
+
+
+def _cached_decode_attention(q, k, v, eff_len, sliding_window, impl):
+    """Decode attention over a cache: when the active sharding rules shard
+    the cache's sequence ("cache_seq") over mesh axes that divide its
+    length, the sequence-sharded decode of `sp.decode` (each shard's
+    partial in f32, merged by LSE across the shards) over the rules' mesh,
+    as the reference's shard_map flash-decode; otherwise
+    `ops.decode_attention`."""
+    rules = current_rules()
+    seq_axes = as_axes(rules.rules.get("cache_seq")) if rules is not None else ()
+    if seq_axes and divides(rules.mesh, k.shape[2], seq_axes):
+        from repro_torch.sp.decode import distributed_decode_attention
+        return distributed_decode_attention(
+            q, k, v, eff_len, mesh=rules.mesh, seq_axes=seq_axes,
+            sliding_window=sliding_window,
+            batch_axes=as_axes(rules.rules.get("batch")))
+    return ops.decode_attention(q, k, v, eff_len, sliding_window=sliding_window,
+                                impl=impl)
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,

@@ -62,12 +62,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda") -> Params:
     """Random weights from a seeded generator on `device`, with the
     reference's distributions (it draws other numbers from the same seed;
-    `bridge.params_from_jax` carries the reference's own weights)."""
+    `bridge.params_from_jax` carries the reference's own weights).  On the
+    "meta" device nothing is drawn: the tree holds each weight's shape and
+    dtype only (`launch.steps.params_structs`)."""
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(f"unknown model family {fam!r}")
     dt = _dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     d, V, nl = cfg.d_model, cfg.padded_vocab, cfg.num_layers
 
     def ones(*shape):

@@ -79,7 +79,8 @@ def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor, *,
     key = (torch.arange(G, device=x.device)[:, None] * E
            + expert.reshape(G, Tg * K)).flatten()
     order = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=G * E)
+    counts = torch.zeros(G * E, dtype=key.dtype, device=x.device).index_add_(
+        0, key, torch.ones_like(key))           # bincount, shaped without the data
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.empty_like(key)
     slot[order] = torch.arange(key.numel(), device=x.device) - starts[key[order]]
@@ -107,7 +108,12 @@ def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
     """x (B, S, d) -> (y (B, S, d), aux {"lb_loss", "dropped_frac"}).  Each
     expert with kept assignments runs its SwiGLU on its own rows (matmuls in
     x's dtype); the outputs, times the gates in x's dtype, are summed per
-    token in f32."""
+    token in f32.  On the "meta" device (the dry run's account, which has no
+    values to route by) it is `moe_block_onehot`, the reference's own
+    dispatch."""
+    if x.device.type == "meta":
+        return moe_block_onehot(cfg, p, x, capacity_factor=capacity_factor,
+                                group_size=group_size)
     B, S, d = x.shape
     K = cfg.experts_per_token
     r = route(cfg, p["router"], x, capacity_factor=capacity_factor,

@@ -1,0 +1,307 @@
+"""The port's dry run (`repro_torch.launch.dryrun`, `dryrun_all`) and the
+reference's ``ShapeDtypeStruct`` helpers' counterparts (`launch.steps`), at
+full width: shapes only, on the meta device.
+
+* `params_structs` / `opt_structs` / `batch_structs` / `cache_structs`
+  against the reference's ``eval_shape`` trees (each per-layer leaf the
+  reference's stacked leaf without its L axis, L of them);
+* the record's argument bytes per device against the sum of the
+  reference's ``NamedSharding(...).shard_shape`` blocks;
+* `cost.flops` against the analytic 2·N·T (prefill), 6·N·T plus the
+  layer remat (train: 2·N_layer·T but w_down, where the checkpoint's
+  recompute stops; the head is not rematerialised) and 2·N·B (decode),
+  each plus the plain attention's
+  products (every tile of Sq x Sk: the plain version masks, it does not
+  skip; train runs it five times: forward, layer remat, q-block remat,
+  and the backward of both products), within 2 %, for mistral_7b and
+  llama3_8b;
+* the train account's extrapolation from 2 and 3 units equal to a run at
+  full depth, and the replayed q-columns and SSD scans equal to ones run,
+  for every family at reduced width;
+* the matrix: the skip set is the reference's `supports_shape` (66 run,
+  14 skipped), one shape per arch runs OK on both production meshes (the
+  full matrix takes more than a minute on one core: it runs in
+  `chip_smoke.py`'s dryrun phase and `python -m
+  repro_torch.launch.dryrun_all`), and the CLIs write their records.
+"""
+import contextlib
+import dataclasses
+import json
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh, NamedSharding
+
+from repro.configs import ARCH_IDS, INPUT_SHAPES, PAPER_ARCH_IDS
+from repro.configs import get_config as j_get_config
+from repro.launch import shardings as jshd
+from repro.launch import steps as jst
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, dryrun_all
+from repro_torch.launch import shardings as shd
+from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import init_params
+
+torch.set_num_threads(1)
+
+ALL_ARCHS = ARCH_IDS + PAPER_ARCH_IDS
+FLOP_TOL = 0.02
+
+
+def _dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def _ref_leaf(tree, path):
+    for c in path:
+        if isinstance(c, int):
+            continue
+        tree = getattr(tree, c) if hasattr(tree, "_fields") else tree[c]
+    return tree
+
+
+def _held_structs(tree, jtree):
+    """Every port leaf has the reference's shape (stacked: without its L
+    axis, one leaf per layer) and dtype; every reference leaf is met."""
+    seen = {}
+
+    def check(path, x, n_stack):
+        j = _ref_leaf(jtree, path)
+        want = tuple(j.shape[1:]) if n_stack else tuple(j.shape)
+        assert tuple(x.shape) == want, path
+        assert n_stack in (0, j.shape[0]), path
+        assert _dtype_name(x) == np.dtype(j.dtype).name, path
+        assert x.device.type == "meta"
+        key = tuple(c for c in path if not isinstance(c, int))
+        seen[key] = seen.get(key, 0) + 1
+    shd.walk(check, tree)
+    assert len(seen) == len(jax.tree.leaves(jtree))
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_structs_match_reference(arch):
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    params, jparams = st.params_structs(cfg), jst.params_structs(jcfg)
+    _held_structs(params, jparams)
+    opt, jopt = st.opt_structs(params), jst.opt_structs(jparams)
+    _held_structs(opt.moments, jopt.moments)
+    assert tuple(opt.step.shape) == jopt.step.shape
+    for shape in INPUT_SHAPES.values():
+        for got, want in ((st.batch_structs(cfg, shape), jst.batch_structs(jcfg, shape)),
+                          (st.cache_structs(cfg, shape), jst.cache_structs(jcfg, shape))):
+            _held_structs(got, want)
+
+
+def test_meta_init_draws_nothing_and_matches_the_cpu_tree():
+    cfg = dataclasses.replace(reduced_config(get_config("zamba2_2_7b")), dtype="float32")
+    meta, cpu = init_params(cfg, device="meta"), init_params(cfg, device="cpu")
+    shd.walk(lambda path, m, n, c: (m.device.type == "meta" and m.shape == c.shape
+                                    and m.dtype == c.dtype) or pytest.fail(str(path)),
+             meta, cpu)
+    again = init_params(cfg, device="cpu")      # the CPU draw is unchanged
+    shd.walk(lambda path, a, n, b: torch.equal(a, b) or pytest.fail(str(path)), cpu, again)
+
+
+def _ref_bytes(jtree, jspecs, jmesh):
+    return sum(math.prod(NamedSharding(jmesh, s).shard_shape(x.shape)) * x.dtype.itemsize
+               for x, s in zip(jax.tree.leaves(jtree),
+                               jax.tree.leaves(jspecs, is_leaf=lambda s: isinstance(
+                                   s, jax.sharding.PartitionSpec))))
+
+
+@pytest.mark.parametrize("arch", ["internvl2_76b", "llama4_maverick_400b_a17b",
+                                  "zamba2_2_7b", "seamless_m4t_large_v2", "llama3_8b"])
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_argument_bytes_match_reference_shards(arch, multi_pod, monkeypatch):
+    """The record's per-device argument bytes = the reference's shard
+    shapes summed (the step's own account stubbed out: argument bytes come
+    from the spec trees alone)."""
+    monkeypatch.setattr(dryrun, "step_account", lambda cfg, shape: dict(
+        temp=0, new_out=0, flops=0, bytes=0, replaced=set(), units=1, units_run=[1]))
+    jmesh = (AbstractMesh((2, 16, 16), ("pod", "data", "model")) if multi_pod
+             else AbstractMesh((16, 16), ("data", "model")))
+    jcfg = j_get_config(arch)
+    jparams = jst.params_structs(jcfg)
+    for name, shape in INPUT_SHAPES.items():
+        rec = dryrun.run_combo(arch, name, multi_pod=multi_pod)
+        if rec.get("skipped"):
+            continue
+        fsdp = rec["fsdp"]        # the H100's decision (test_torch_sharding.py)
+        jpspecs = jshd.param_specs(jcfg, jparams, jmesh, fsdp=fsdp)
+        bspecs = jshd.batch_specs(jcfg, shape, jmesh)
+        batch = jst.batch_structs(jcfg, shape)
+        want = {"params": _ref_bytes(jparams, jpspecs, jmesh)}
+        if shape.kind == "train":
+            jopt = jst.opt_structs(jparams)
+            want["opt"] = _ref_bytes(jopt, jshd.opt_specs(jpspecs, jopt), jmesh)
+            want["batch"] = _ref_bytes(batch, bspecs, jmesh)
+        else:
+            jcache = jst.cache_structs(jcfg, shape)
+            want["cache"] = _ref_bytes(jcache, jshd.cache_specs(
+                jcfg, jcache, jmesh, global_batch=shape.global_batch), jmesh)
+            if shape.kind == "prefill":
+                want["batch"] = _ref_bytes(batch, bspecs, jmesh)
+            else:
+                want["token"] = _ref_bytes(batch["token"], bspecs["token"], jmesh)
+        assert rec["memory"]["arguments"] == want, name
+        assert rec["memory"]["argument_size_in_bytes"] == sum(want.values())
+
+
+def _analytic_flops(cfg, shape):
+    d, H, KV, hd, L = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    n_layer = d * hd * (H + 2 * KV) + H * hd * d + 3 * d * cfg.d_ff
+    head = d * cfg.padded_vocab
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        S_k = st.cache_lengths(cfg, shape)[0]
+        return 2 * (L * n_layer + head) * B + L * 4 * B * H * S_k * hd
+    T = B * S
+    attn = L * 4 * B * H * S * S * hd
+    if shape.kind == "prefill":
+        return 2 * (L * n_layer + head) * T + attn
+    # forward 2, layer remat 2 (all but w_down: the checkpoint's recompute
+    # stops at the last tensor the backward saved), backward 4; the head is
+    # not rematerialised
+    return (8 * n_layer - 2 * d * cfg.d_ff) * L * T + 6 * head * T + 5 * attn
+
+
+@pytest.mark.parametrize("arch,shape", [
+    (a, s) for a in ("mistral_7b", "llama3_8b")
+    for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    if st.supports_shape(get_config(a), INPUT_SHAPES[s])[0]])
+def test_flops_match_the_analytic_count(arch, shape):
+    cfg = get_config(arch)
+    rec = dryrun.run_combo(arch, shape)
+    want = _analytic_flops(cfg, INPUT_SHAPES[shape])
+    assert abs(rec["cost"]["flops"] / want - 1) <= FLOP_TOL, (rec["cost"]["flops"], want)
+    assert rec["cost"]["bytes accessed"] > 0
+
+
+#: one reduced f32 config per family, cut to `units` units of depth
+FAMILIES = ["mistral_7b", "olmoe_1b_7b", "mamba2_130m", "zamba2_2_7b",
+            "seamless_m4t_large_v2", "internvl2_76b"]
+
+
+def _reduced(arch, units):
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+    _, cut = dryrun._units(cfg)
+    return cut(units)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_account_extrapolates_exactly(arch):
+    cfg = _reduced(arch, 5)
+    shape = ShapeConfig("t", 128, 2, "train")
+    got = dryrun.step_account(cfg, shape)
+    assert got["units"] == 5 and got["units_run"] == [2, 3]
+    want = dryrun._run(cfg, shape)
+    for k in ("temp", "new_out", "flops", "bytes"):
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_replayed_columns_equal_columns_run(arch, monkeypatch):
+    cfg = _reduced(arch, 2)
+    for shape in (ShapeConfig("p", 2304, 2, "prefill"), ShapeConfig("d", 2304, 2, "decode")):
+        got = dryrun._run(cfg, shape)
+        with monkeypatch.context() as m:
+            m.setattr(dryrun._Account, "replaying",
+                      lambda self: contextlib.nullcontext())
+            want = dryrun._run(cfg, shape)
+        assert got == want, shape.kind
+
+
+def test_replay_serves_only_meta_calls_of_its_own_thread(monkeypatch):
+    """Inside `_Account.replaying` a plain-attention call on CPU tensors of
+    a shape already accounted on meta runs for real, as does a meta call
+    from another thread: the replay reads the device, and its hook lives in
+    the entering thread's context only."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import flash_attention as fa
+    runs = []
+    column = fa._q_column
+    monkeypatch.setattr(fa, "_q_column", lambda *a, **kw: runs.append(
+        a[0].device.type) or column(*a, **kw))
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 8, 16, generator=g) for _ in range(3))
+    want = fa.torch_attention(q, k, v, q_block=4, kv_block=4)
+    meta = [t.to("meta") for t in (q, k, v)]
+    runs.clear()
+    with torch.no_grad(), dryrun._Account(meta) as acc, acc.replaying():
+        fa.torch_attention(*meta, q_block=4, kv_block=4)   # one column run
+        got = fa.torch_attention(q, k, v, q_block=4, kv_block=4)
+        with ThreadPoolExecutor(1) as pool:
+            pool.submit(fa.torch_attention, *meta, q_block=4, kv_block=4).result()
+        fa.torch_attention(*meta, q_block=4, kv_block=4)   # replayed
+    assert runs == ["meta", "cpu", "cpu", "meta", "meta"]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_alias_and_outputs_follow_the_donations():
+    """Serve: the cache is returned in place but for "len" (replaced), the
+    new outputs are the logits and that "len"; train: params and moments in
+    place, the step count replaced."""
+    host = make_host_mesh(1, devices=["cpu"])
+    rec = dryrun.run_combo("llama3_8b", "decode_32k", mesh=host)
+    mem = rec["memory"]
+    B, V = 128, get_config("llama3_8b").padded_vocab
+    assert mem["alias_size_in_bytes"] == mem["arguments"]["cache"] - 4 * B
+    assert mem["output_size_in_bytes"] - mem["alias_size_in_bytes"] == B * V * 2 + 4 * B
+    assert rec["n_devices"] == 1 and rec["mesh"] == "host1x1"
+    rec = dryrun.run_combo("mamba2_130m", ShapeConfig("t", 256, 2, "train"), layers=2,
+                           mesh=host)
+    mem = rec["memory"]
+    assert mem["alias_size_in_bytes"] == (mem["arguments"]["params"]
+                                          + mem["arguments"]["opt"] - 4)
+    assert mem["per_device_total"] == (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                                       + mem["output_size_in_bytes"]
+                                       - mem["alias_size_in_bytes"])
+
+
+def test_matrix_skip_set_matches_reference():
+    """66 combos run and 14 skip, the skipped ones the reference's, each
+    record with the reference's reason and no account."""
+    n_run = n_skip = 0
+    for arch in ARCH_IDS:
+        for name, shape in INPUT_SHAPES.items():
+            ok, reason = jst.supports_shape(j_get_config(arch), shape)
+            assert st.supports_shape(get_config(arch), shape) == (ok, reason)
+            for mp in (False, True):
+                if ok:
+                    n_run += 1
+                    continue
+                rec = dryrun.run_combo(arch, name, multi_pod=mp)
+                assert rec["skipped"] and rec["reason"] == reason and "memory" not in rec
+                n_skip += 1
+    assert (n_run, n_skip) == (66, 14)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_matrix_decode_combo_runs_on_both_meshes(arch):
+    for mp, n in ((False, 256), (True, 512)):
+        rec = dryrun.run_combo(arch, "decode_32k", multi_pod=mp)
+        assert rec["ok"] and rec["n_devices"] == n
+        assert rec["mesh"] == ("pod2x16x16" if mp else "pod16x16")
+        mem = rec["memory"]
+        assert mem["fits"] == (mem["per_device_total"] <= 80e9)
+        assert mem["temp_size_in_bytes"] > 0 and "estimate" in mem["temp_scope"]
+        assert rec["collectives"] is None and rec["collectives_reason"]
+        assert rec["cost"]["flops"] > 0
+
+
+def test_cli_writes_records(tmp_path, capsys):
+    out = tmp_path / "dry"
+    assert dryrun_all.main(["--archs", "mamba2_130m", "--out", str(out)]) == 0
+    recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+    assert len(recs) == 8 and all(r["ok"] for r in recs)
+    assert "done: 8 ok, 0 skipped, 0 failed" in capsys.readouterr().out
+    assert dryrun.main(["--arch", "qwen2_7b", "--shape", "long_500k",
+                        "--out", str(out)]) == 0
+    assert json.loads((out / "qwen2_7b.long_500k.pod16x16.json").read_text())["skipped"]
+    assert "SKIP qwen2_7b.long_500k.pod16x16" in capsys.readouterr().out

@@ -60,6 +60,14 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
 
 
+def test_dry_run_modules_are_checked():
+    """The dry run's and the sharding layer's modules are among the files
+    held to no jax / repro import above."""
+    checked = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    assert {"launch/dryrun.py", "launch/dryrun_all.py", "launch/mesh.py",
+            "launch/shardings.py", "models/sharding.py"} <= checked
+
+
 def test_package_imports_without_jax():
     """Every module of the port imports with `jax` and `repro` blocked."""
     code = ("import sys, pkgutil, importlib\n"
@@ -102,12 +110,13 @@ def _tiny():
                                    "serve_cli", "quickstart_cli",
                                    "serve_cluster_cli", "engine_overhead_cli",
                                    "engine_stack", "run_spec", "train_cli",
-                                   "train_lm_cli", "sp_devices"])
+                                   "train_lm_cli", "sp_devices", "host_mesh"])
 def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
     from repro_torch.experiments import runner
     from repro_torch.experiments.spec import ExperimentSpec
     from repro_torch.launch import (engine_overhead, quickstart, serve, serve_cluster,
                                     train, train_lm)
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
     from repro_torch.serving import EngineBackend, MiniCluster, ReplicaEngine
     cfg, params = _tiny()
@@ -129,6 +138,8 @@ def test_entry_points_raise_without_cuda(no_cuda, entry, monkeypatch):
         # a gang over cards on a CPU backend still needs the cards
         "sp_devices": lambda: EngineBackend(cfg, params, device="cpu",
                                             sp_devices=["cuda"] * 2),
+        # a host mesh spans the visible cards unless it is given devices
+        "host_mesh": make_host_mesh,
     }
     monkeypatch.setattr(sys, "argv", ["serve", "--layers", "2"])
     with pytest.raises(RuntimeError):
