@@ -131,11 +131,28 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                SHARDED_REL_TOL (bf16, the plain unsharded decode's
                readings beside them as the yardstick of one more rounding)
                and SHARDED_F32_TOL with B2's greedy tokens (f32), no B2
-               launch.
+               launch;
+20. partition — the prefill and serve steps partitioned under the
+               sharding rules (``launch/partition.py``, ``models/tp.py``)
+               on (data, model) meshes whose ranks share the card, from
+               shards of the same weights (views): llama31_70b at full
+               width and PARTITION_LAYERS of 80 layers on (1, 4) and
+               (2, 2), 4 x 2048 prompt tokens into a cache of 2080 and 32
+               serve steps, against the unpartitioned steps (B1, B2) — bf16
+               within PARTITION_REL_TOL with the same first token (a
+               reduce-scatter that drops the last rank's partial must read
+               above it, and so must PARTITION_FAULT_STEPS serve steps
+               whose all-reduce drops it), f32 at PARTITION_F32_LAYERS within
+               PARTITION_F32_TOL with every greedy token — B1 exactly
+               layers x ranks per prefill, no B2; the collective bytes
+               counted on the card equal to the dry run's count
+               (``dryrun.collective_bytes``, what run_combo records) for
+               the same arch, shapes, cache length and mesh; qwen2_7b's 28 heads on (1, 8)
+               through the sequence fallback (B1 at q_offset) the same way.
 
 Then one JSON line with every kernel's numbers (launches summed over the
-serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring, gang
-and dryrun phases; the train phases launch none)
+serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring, gang,
+dryrun and partition phases; the train phases launch none)
 and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
@@ -197,6 +214,25 @@ SHARDED_F32_TOL = 1e-4
 #: dryrun: bf16 steps of the planted fault (the merge drops the last rank's
 #: partial), each of which must read above SHARDED_REL_TOL
 SHARDED_FAULT_STEPS = 4
+#: partition: llama31_70b at full width and PARTITION_LAYERS of its 80
+#: layers (80 are ~141 GB in bf16, over one card), prefilling
+#: PARTITION_BATCH x PARTITION_PROMPT tokens into a cache of PARTITION_CACHE
+#: positions and PARTITION_STEPS serve steps, partitioned over each of
+#: PARTITION_MESHES (data, model) on ranks that share the card; f32 at
+#: PARTITION_F32_LAYERS.  qwen2_7b's 28 heads on (1, 8) take the rules'
+#: sequence fallback at PARTITION_F32_LAYERS layers
+PARTITION_LAYERS, PARTITION_F32_LAYERS = 24, 4
+PARTITION_BATCH, PARTITION_PROMPT, PARTITION_STEPS = 4, 2048, 32
+PARTITION_CACHE = PARTITION_PROMPT + PARTITION_STEPS
+PARTITION_MESHES = ((1, 4), (2, 2))
+#: partition: logits per row and step and every (layer, sequence)'s K and V
+#: against the unpartitioned steps (B1, B2), in ||got - want|| / ||want||:
+#: bf16 (partial sums rounded to bf16 before their reduction, the gang's
+#: and the sharded decode's limit) and f32 (where every greedy token agrees)
+PARTITION_REL_TOL, PARTITION_F32_TOL = 5e-2, 1e-4
+#: partition: teacher-forced serve steps on a mesh whose all-reduce drops
+#: the last rank's partial (the first mesh, bf16), each above the limit
+PARTITION_FAULT_STEPS = 2
 #: peak GB measured by the train, vlm and ring phases, read by dryrun
 PEAK_GB = {}
 HBM_BPS = 3.35e12               # H100 SXM data sheet
@@ -400,7 +436,10 @@ def phase_kernels(torch, dev):
     # llama3_8b's ring prefill at long_500k (12,288 tokens, window 8192);
     # the gang SP ring's hops of mistral_7b at 8192 tokens over a (2, 2)
     # mesh (GANG_*: 16 q / 4 KV heads per rank over a 4096-token segment),
-    # the diagonal and the hop that sees every key.
+    # the diagonal and the hop that sees every key; the partitioned prefill's
+    # per-rank shapes: llama31_70b on 4 model ranks (16 q / 2 KV heads) and
+    # qwen2_7b's last of 8 ranks in the sequence fallback (256 query rows at
+    # q_offset 1792 against all 2048 keys, 28 q / 4 KV heads).
     # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
@@ -420,7 +459,12 @@ def phase_kernels(torch, dev):
             ("fa_gang_hop_diagonal_4096", 1, 16, 4, 128, GANG_SEG, GANG_SEG, 0, 0,
              False, True),
             ("fa_gang_hop_visible_4096", 1, 16, 4, 128, GANG_SEG, GANG_SEG,
-             GANG_SEG, 0, False, True)):
+             GANG_SEG, 0, False, True),
+            ("fa_partition_tp4_gqa8_causal_2048", PARTITION_BATCH, 16, 2, 128,
+             PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True),
+            ("fa_partition_rows8_qwen2_256_at_1792", PARTITION_BATCH, 28, 4, 128,
+             PARTITION_PROMPT // 8, PARTITION_PROMPT, PARTITION_PROMPT * 7 // 8, 0,
+             False, True)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kl = [sk, sk - 77] if ragged else [sk] * B
@@ -1865,6 +1909,218 @@ def phase_dryrun(torch, dev, smi):
          launches=launches, phase_s=time.perf_counter() - t_phase)
     return launches
 
+def _dropping_last_partial(mesh, op="psum_scatter"):
+    """`mesh` whose `op` (psum_scatter or psum) leaves out the last rank's
+    partial: a reduce-scatter drops that rank's share of the prefill's
+    row-parallel projections (wo, w_down) and embedding, an all-reduce its
+    share of the serve step's, and of its decode's merge."""
+    import torch
+    from repro_torch.sp.common import GangMesh
+
+    def drop(xs, here):
+        return xs[:-1] + [torch.zeros_like(xs[-1])] if op == here else xs
+
+    class Dropping(GangMesh):
+        def psum_scatter(self, xs, axes, *, scatter_dimension):
+            return super().psum_scatter(drop(xs, "psum_scatter"), axes,
+                                        scatter_dimension=scatter_dimension)
+
+        def psum(self, xs, axes):
+            return super().psum(drop(xs, "psum"), axes)
+    return Dropping(mesh.devices, tuple(mesh.shape.values()), mesh.axis_names)
+
+
+def _partition_case(torch, dev, arch, layers, dtype, meshes):
+    """One model at full width, `layers` deep, in `dtype`: the unpartitioned
+    prefill (B1) and PARTITION_STEPS greedy serve steps (B2), then per mesh
+    shape the same from shards of the same weights (views) on ranks that
+    share the card: launches exact, logits and K/V against the
+    unpartitioned run, the collective bytes counted on the card against the
+    dry run's count (bf16: its model's dtype), planted faults in the
+    prefill's reduce-scatter and the serve step's all-reduce (bf16, the
+    first mesh), and for the record wall seconds, the device's idle share
+    and operations of a serve step, the card's peak and each rank's
+    argument bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.checks import rel_err
+    from repro_torch.launch import dryrun, partition, steps
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.sp.common import GangMesh
+
+    bf16 = dtype == "bfloat16"
+    tol = PARTITION_REL_TOL if bf16 else PARTITION_F32_TOL
+    B, S, N, C = PARTITION_BATCH, PARTITION_PROMPT, PARTITION_STEPS, PARTITION_CACHE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+    pre = ShapeConfig(f"prefill_{B}x{S}", S, B, "prefill")
+    dec = ShapeConfig(f"decode_{B}x{C}", C, B, "decode")
+    params = init_params(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    prefill, serve = steps.build_prefill_step(cfg, pre), steps.build_serve_step(cfg, dec)
+    cache = init_cache(cfg, B, C, device=dev)
+    (lg, cache), pre_s, counts = _run_counted(
+        torch, lambda: prefill(params, {"tokens": toks}, cache))
+    _expect("partition", f"{arch} unpartitioned flash_attention per prefill",
+            counts["flash_attention"], layers)
+    ref_kv = {k: cache[k][:, :, :, :S].clone() for k in ("k", "v")}
+
+    def greedy():
+        out, last = [], lg
+        for _ in range(N):
+            tok = last.argmax(-1)
+            last, _ = serve(params, cache, tok)
+            out.append((tok, last))
+        return out
+    want, dec_s, dc = _run_counted(torch, greedy)
+    _expect("partition", f"{arch} unpartitioned flash_decode over {N} steps",
+            dc["flash_decode"], layers * N)
+    launches = {k: counts[k] + dc[k] for k in counts}
+    del cache
+    res = dict(arch=arch, dtype=dtype, layers=layers, batch=B, prompt=S, cache_len=C,
+               steps=N, tol=tol, unpartitioned=dict(prefill_s=pre_s,
+                                                    decode_ms_per_step=1e3 * dec_s / N))
+    for shape in meshes:
+        n = shape[0] * shape[1]
+        mesh = GangMesh([dev] * n, shape, ("data", "model"))
+        tag = f"{shape[0]}x{shape[1]}"
+
+        def shards(mesh):
+            pspecs = shd.param_specs(cfg, params, mesh,
+                                     fsdp=shd.needs_fsdp(cfg, mesh, "prefill"))
+            c = init_cache(cfg, B, C, device=dev)
+            cspecs = shd.cache_specs(cfg, c, mesh, global_batch=B)
+            return (partition.shard_tree(params, pspecs, mesh),
+                    partition.shard_tree({"tokens": toks}, shd.batch_specs(cfg, pre, mesh),
+                                         mesh),
+                    partition.shard_tree(c, cspecs, mesh),
+                    shd.per_device_bytes(params, pspecs, mesh)
+                    + shd.per_device_bytes(c, cspecs, mesh))
+        p, b, c, rank_bytes = shards(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_bytes()
+        (lg_s, c), p_pre_s, pc = _run_counted(torch, lambda: prefill(p, b, c))
+        pre_bytes = dict(mesh.collective_bytes[0])
+        _expect("partition", f"{arch} {tag} flash_attention per prefill",
+                pc["flash_attention"], layers * n)
+        got = partition.unshard_tree(lg_s)
+        first_same = bool(torch.equal(got.argmax(-1), lg.argmax(-1)))
+        logits_err = rel_err(got[None], lg[None].float())
+        kv = partition.unshard_tree(c)
+        kv_err = max(rel_err(kv[k][:, :, :, :S].flatten(0, 1), ref_kv[k].flatten(0, 1).float())
+                     for k in ("k", "v"))
+        del kv
+        tspec = shd.batch_specs(cfg, dec, mesh)["token"]
+        step_bytes = []
+
+        def run(c=c):
+            out, last = [], got
+            for i in range(N):
+                # bf16 teacher-forced by the unpartitioned tokens (one
+                # more rounding flips near-tied random-weight argmaxes);
+                # f32 greedy on its own
+                tok = want[i][0] if bf16 else last.argmax(-1)
+                mesh.reset_bytes()
+                lg_i, c = serve(p, c, partition.shard_tree(tok, tspec, mesh))
+                step_bytes.append(dict(mesh.collective_bytes[0]))
+                last = partition.unshard_tree(lg_i)
+                out.append((tok, last))
+            return out, c
+        (out, c), p_dec_s, sc = _run_counted(torch, run)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _expect("partition", f"{arch} {tag} flash_decode over {N} steps", sc["flash_decode"], 0)
+        _expect("partition", f"{arch} {tag} flash_attention over {N} steps",
+                sc["flash_attention"], 0)
+        errs = _rel_norms(out, want)
+        steps_same, rows_same = _same_tokens(out, want)
+        fails = []
+        if bf16 and not first_same:
+            fails.append("the first token differs")
+        if max([logits_err, kv_err] + errs) > tol:
+            fails.append(f"logits {logits_err:.3e}, K/V {kv_err:.3e}, serve steps "
+                         f"{max(errs):.3e} against the limit {tol}")
+        if not bf16 and steps_same != N:
+            fails.append(f"the same greedy tokens in {steps_same} of {N} steps")
+        if any(sb != step_bytes[0] for sb in step_bytes):
+            fails.append("the serve steps moved different collective bytes")
+        row = dict(mesh=dict(mesh.shape), first_token_same=first_same,
+                   prefill_logits_rel_err=logits_err, kv_rel_err=kv_err,
+                   serve_rel_err_max=max(errs), steps_tokens_same=steps_same,
+                   rows_tokens_same=rows_same, prefill_s=p_pre_s,
+                   decode_ms_per_step=1e3 * p_dec_s / N, card_peak_gb=peak_gb,
+                   rank_argument_gb=rank_bytes / 1e9,
+                   collective_bytes=dict(prefill=pre_bytes, serve_step=step_bytes[0]))
+        if bf16:
+            # the dry run's count on meta ranks (run_combo's numbers),
+            # the prefill's with the card's cache of C positions
+            recs = {"prefill": dryrun.collective_bytes(cfg, pre, mesh, max_len=C),
+                    "serve_step": dryrun.collective_bytes(cfg, dec, mesh)}
+            row["dry_run_collectives_equal"] = recs == row["collective_bytes"]
+            if not row["dry_run_collectives_equal"]:
+                fails.append(f"collective bytes on the card {row['collective_bytes']} "
+                             f"against the dry run's {recs}")
+            # two serve steps under the profiler (the device's idle share),
+            # the cache's length set back by two: it is full
+            tok = partition.shard_tree(want[0][0], tspec, mesh)
+            back = partition.Sharded([dict(t, len=t["len"] - 2) for t in c.local],
+                                     c.specs, mesh)
+            row["serve_step_profile"] = _profile_steps(
+                torch, lambda: serve(p, back, tok), 2)
+        if bf16 and shape == meshes[0]:
+            fp, fb, fc, _ = shards(_dropping_last_partial(mesh))
+            fault = partition.unshard_tree(prefill(fp, fb, fc)[0])
+            row["dropped_partial_rel_err"] = rel_err(fault[None], lg[None].float())
+            del fp, fb, fc, fault
+            if row["dropped_partial_rel_err"] <= tol:
+                fails.append(f"a reduce-scatter without the last rank's partial reads "
+                             f"{row['dropped_partial_rel_err']:.3e}, inside the limit")
+            # the serve step's own all-reduces: the same shards on a mesh
+            # whose psum drops the last rank's partial, the cache's length
+            # set back to the prompt's, fed the unpartitioned tokens
+            fm = _dropping_last_partial(mesh, "psum")
+            fp = partition.Sharded(p.local, p.specs, fm)
+            fc = partition.Sharded([dict(t, len=torch.full_like(t["len"], S)) for t in c.local],
+                                   c.specs, fm)
+            fault_out = []
+            for i in range(PARTITION_FAULT_STEPS):
+                lg_f, fc = serve(fp, fc, partition.shard_tree(want[i][0], tspec, fm))
+                fault_out.append((want[i][0], partition.unshard_tree(lg_f)))
+            row["dropped_psum_serve_rel_err"] = _rel_norms(fault_out, want)
+            del fp, fc, fault_out
+            if min(row["dropped_psum_serve_rel_err"]) <= tol:
+                fails.append(f"serve steps whose all-reduce drops the last rank's partial "
+                             f"read {row['dropped_psum_serve_rel_err']}, inside the limit")
+        for k in launches:
+            launches[k] += pc[k] + sc[k]
+        res[tag] = row
+        del p, b, c, lg_s, got, out
+        torch.cuda.empty_cache()
+        if fails:
+            raise AssertionError(f"partition: {arch} {dtype} on {tag}: " + "; ".join(fails))
+    del params, want, ref_kv, lg
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def phase_partition(torch, dev, smi):
+    """The partitioned prefill and serve steps (module doc, 20)."""
+    t0 = time.perf_counter()
+    runs, launches = {}, dict.fromkeys(_counters(), 0)
+    for name, arch, layers, dtype, meshes in (
+            ("llama31_70b_bf16", "llama31_70b", PARTITION_LAYERS, "bfloat16", PARTITION_MESHES),
+            ("llama31_70b_f32", "llama31_70b", PARTITION_F32_LAYERS, "float32",
+             PARTITION_MESHES),
+            ("qwen2_7b_bf16", "qwen2_7b", PARTITION_F32_LAYERS, "bfloat16", ((1, 8),)),
+            ("qwen2_7b_f32", "qwen2_7b", PARTITION_F32_LAYERS, "float32", ((1, 8),))):
+        runs[name], counts = _partition_case(torch, dev, arch, layers, dtype, meshes)
+        for k, v in counts.items():
+            launches[k] += v
+    _say("partition", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
+         f32_tol=PARTITION_F32_TOL, runs=runs, launches=launches,
+         phase_s=time.perf_counter() - t0)
+    return launches
+
 
 def main() -> int:
     import torch
@@ -1942,6 +2198,9 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in phase_dryrun(torch, dev, smi).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in phase_partition(torch, dev, smi).items():
         launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

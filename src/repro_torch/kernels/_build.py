@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -31,6 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+#: serialises first loads and launch counts: the ranks of a mesh launch
+#: kernels from threads of their own (`sp.common.lockstep`)
+_lock = threading.Lock()
 #: compiler output of the last build of each source (ptxas register/smem use)
 build_logs: Dict[str, str] = {}
 
@@ -81,14 +85,21 @@ def build_all() -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        _libs[name] = lib
-    return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, whichever thread launched."""
+    with _lock:
+        wrapper.launches += 1
 
 
 def raw_stream(device) -> int:

@@ -178,7 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              float(scale if scale is not None else d ** -0.5),
              _DTYPES[q.dtype], _build.raw_stream(q.device))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return (out, lse) if return_lse else out
 
 

@@ -167,7 +167,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         b, h, kvh, s, d, int(sliding_window), n_split, chunk,
                         float(d ** -0.5), _DTYPES[q.dtype], _build.raw_stream(dev))
     _build.check(err, "flash_decode")
-    flash_decode.launches += 1
+    _build.count_launch(flash_decode)
     return out
 
 

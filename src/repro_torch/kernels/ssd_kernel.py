@@ -283,7 +283,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             _rows_per_block(b, nh, hd, dev.index or 0), *strides,
             _build.raw_stream(dev))
     _build.check(err, "ssd_scan")
-    ssd_scan.launches += 1
+    _build.count_launch(ssd_scan)
     return (y, h_t) if return_state else y
 
 

@@ -3,9 +3,9 @@
 what it computes, without allocating it.
 
 The reference lowers and compiles the step for 512 fake XLA devices and
-reads the compiler's memory and cost analyses.  The port has no partitioner;
-its analogue is an account of the step on the "meta" device, where tensors
-have shapes and dtypes and no storage:
+reads the compiler's memory and cost analyses.  The port has no compiler's
+analyses; its analogue is an account of the whole (unpartitioned) step on
+the "meta" device, where tensors have shapes and dtypes and no storage:
 
 * arguments: the per-device bytes of what the step takes (train: params,
   optimizer state, batch; prefill: params, batch, cache; serve: params,
@@ -14,9 +14,9 @@ have shapes and dtypes and no storage:
   on meta tensors (``impl="torch"``, as the reference lowers with "xla"),
   counted under a dispatch mode when created and freed on release (views
   and in-place writes add nothing: the port writes the cache in place),
-  less the new outputs'.  The single controller holds whole tensors, so on
-  a mesh of n devices this is the whole step's peak divided by n: an
-  estimate, and the record says so;
+  less the new outputs'.  The account runs the whole step, so on a mesh of
+  n devices this is its peak divided by n: an estimate, and the record
+  says so;
 * output / alias: the reference's donations (params and optimizer for
   train, the cache for prefill and serve): alias is the per-device bytes
   of the donated leaves the step returns in place, output that plus the new
@@ -36,9 +36,18 @@ layer; a hybrid segment of `attn_every` Mamba2 layers and the shared
 block; an audio encoder and decoder layer in the model's ratio) and its
 temp, new outputs, FLOPs and bytes are extrapolated linearly to the full
 depth: the peak (in the backward or the optimizer update) grows by the
-same bytes with every unit.  Collective bytes, which the reference parses
-from partitioned HLO, have no counterpart: the record carries
-``"collectives": null``.
+same bytes with every unit.
+
+Collective bytes, which the reference parses from partitioned HLO
+(``collective_bytes_from_hlo``: each collective's result bytes in one
+device's program), come from the partitioner's own count: the prefill and
+serve steps of the dense and vlm families run partitioned
+(`launch/partition.py`) on meta ranks of the combo's mesh, rank 0's body
+alone, and the mesh counts rank 0's collective bytes by kind; a step
+deeper than 3 layers runs at 2 and 3 and is extrapolated (every layer
+moves the same bytes).  The train step and the other families have no
+partitioned step yet: their records carry ``"collectives": null`` and the
+reason (`collectives_reason`).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
         --shape train_4k [--multi-pod] [--out build/dryrun_torch]
@@ -65,13 +74,26 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels import replay as kernel_replay
+from repro_torch.launch import partition
 from repro_torch.launch import shardings as shd
 from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import model as mdl
+from repro_torch.models import tp
+from repro_torch.sp.common import GangMesh
 
 OUT = Path("build/dryrun_torch")
-COLLECTIVES_REASON = ("the port has no partitioner: the reference parses collective "
-                      "bytes from XLA's partitioned HLO")
+
+
+def collectives_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """Why a combo's record carries no collective bytes (None: it does)."""
+    if shape.kind == "train":
+        return ("the partitioned train step (FSDP gradients, AdamW's factored "
+                "moments over sharded leaves, the vocab-parallel loss) is not ported yet")
+    if cfg.family not in tp.FAMILIES:
+        return (f"the partitioned {cfg.family} step is not ported yet: "
+                f"partitioned steps cover the {' and '.join(tp.FAMILIES)} families")
+    return None
 
 
 def _tensors(tree):
@@ -237,6 +259,46 @@ def step_account(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     return dict(out, replaced=two["replaced"], units=n, units_run=[2, 3])
 
 
+def _count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh,
+                       max_len: Optional[int]) -> Dict[str, int]:
+    """One run of the partitioned step on meta ranks shaped like `mesh`:
+    rank 0's collective bytes by kind."""
+    mesh = GangMesh([torch.device("meta")] * mesh.n_ranks, tuple(mesh.shape.values()),
+                    mesh.axis_names)
+    params = st.params_structs(cfg)
+    fsdp = shd.needs_fsdp(cfg, mesh, shape.kind)
+    p = partition.shard_tree(params, shd.param_specs(cfg, params, mesh, fsdp=fsdp), mesh)
+    cache = (st.cache_structs(cfg, shape) if max_len is None
+             else mdl.init_cache(cfg, shape.global_batch, max_len, device="meta"))
+    c = partition.shard_tree(cache, shd.cache_specs(cfg, cache, mesh,
+                                                    global_batch=shape.global_batch), mesh)
+    batch = st.batch_structs(cfg, shape)
+    bspecs = shd.batch_specs(cfg, shape, mesh)
+    # the account's replay: a plain attention column run once per shape
+    with _Account(()) as acc, acc.replaying():
+        if shape.kind == "prefill":
+            b = partition.shard_tree(batch, bspecs, mesh)
+            st.build_prefill_step(cfg, shape, impl="torch")(p, b, c)
+        else:
+            t = partition.shard_tree(batch["token"], bspecs["token"], mesh)
+            st.build_serve_step(cfg, shape, impl="torch")(p, c, t)
+    return dict(mesh.collective_bytes[0])
+
+
+def collective_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh, *,
+                     max_len: Optional[int] = None) -> Dict[str, int]:
+    """Per device, the bytes of each kind of collective (and "total") the
+    partitioned prefill or serve step of `shape` moves on `mesh` (a cache
+    of `max_len` positions where given, else the shape's): counted on meta
+    ranks, at 2 and 3 layers extrapolated past 3."""
+    n, cut = _units(cfg)
+    if n <= 3:
+        return _count_collectives(cfg, shape, mesh, max_len)
+    two = _count_collectives(cut(2), shape, mesh, max_len)
+    three = _count_collectives(cut(3), shape, mesh, max_len)
+    return {k: three[k] + (n - 3) * (three[k] - two[k]) for k in three}
+
+
 def mesh_tag(mesh) -> str:
     """pod16x16 / pod2x16x16 for the production meshes, host<d>x<m> else."""
     kind = "pod" if mesh.devices[0].type == "meta" else "host"
@@ -248,10 +310,10 @@ def run_combo(arch: str, shape: Union[str, ShapeConfig], *, multi_pod: bool = Fa
               mesh=None) -> Dict[str, Any]:
     """The record of one (arch, shape, mesh): the reference's keys (arch,
     shape, mesh, kind, ok / skipped + reason, fsdp, memory, cost,
-    n_devices) with the port's account.  `shape` is a name of INPUT_SHAPES
-    or a ShapeConfig; `layers` cuts the depth; `mesh` (default: the
-    production mesh) may be a host mesh.  Written to out_dir/<tag>.json
-    when out_dir is given."""
+    collectives, n_devices) with the port's account.  `shape` is a name of
+    INPUT_SHAPES or a ShapeConfig; `layers` cuts the depth; `mesh`
+    (default: the production mesh) may be a host mesh.  Written to
+    out_dir/<tag>.json when out_dir is given."""
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -311,8 +373,14 @@ def run_combo(arch: str, shape: Union[str, ShapeConfig], *, multi_pod: bool = Fa
     rec["hbm_per_device"] = shd.HBM_PER_DEVICE
     rec["cost"] = {"flops": float(acct["flops"]), "bytes accessed": float(acct["bytes"]),
                    "scope": "the whole step over every device; bytes unfused"}
-    rec["collectives"] = None
-    rec["collectives_reason"] = COLLECTIVES_REASON
+    reason = collectives_reason(cfg, shape)
+    if reason is None:
+        rec["collectives"] = collective_bytes(cfg, shape, mesh)
+        rec["collectives_scope"] = ("one device's collective result bytes, counted by "
+                                    "the partitioned step on meta ranks")
+    else:
+        rec["collectives"] = None
+        rec["collectives_reason"] = reason
     rec["account"] = {"units": acct["units"], "units_run": acct["units_run"],
                       "seconds": time.perf_counter() - t0}
     rec["ok"] = True

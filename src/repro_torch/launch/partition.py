@@ -1,0 +1,288 @@
+"""The shard_map boundary for whole steps: the counterpart of what XLA's
+SPMD partitioner does to the reference's ``launch/steps.py`` under a mesh.
+
+`shard_tree` cuts a tree (params, batch, cache, token) by the spec trees of
+`launch/shardings.py` into one local tree per rank of a `GangMesh`; where a
+rank lies on the tensor's device its piece is a view, with no copy, so a
+full-width model's shards on ranks that share one card cost no memory.
+`unshard_tree` joins the pieces back.  `run_lockstep` runs one body per
+rank (`sp.common.lockstep`); a body reaches the other ranks only through
+its `Rank`'s collectives, which the mesh counts by kind.  `prefill` and
+`serve` are the partitioned prefill and serve steps of the dense and vlm
+families (`models/tp.py`); `steps.build_prefill_step` and
+`build_serve_step` run them when given `Sharded` arguments.
+
+A mesh whose ranks are all "meta" (the production meshes of the dry run)
+computes shapes only, and this module alone knows it: its `Sharded` holds
+rank 0's tree alone and only rank 0's body runs.  Each collective then
+runs on a `_MetaGroup`, the mesh of its own axes with every member holding
+rank 0's shapes (which SPMD gives every member): one member's result,
+computed once and handed to all, its bytes counted for rank 0, as the
+reference's ``collective_bytes_from_hlo`` counts one device's program.
+The sequence-sharded decode (`sp.decode.distributed_decode_local`) runs on
+that group as on any mesh: each member's partial from the same shapes,
+then the group's pmax and psums.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.shardings import walk
+from repro_torch.models import tp
+from repro_torch.models.sharding import P, PartitionSpec
+from repro_torch.sp.common import Axes, GangMesh, as_axes, lockstep
+
+
+@dataclass
+class Sharded:
+    """A tree cut over `mesh`: `local[r]` is rank r's tree (on a meta mesh
+    rank 0's alone), `specs` the spec tree it was cut by."""
+    local: List[Any]
+    specs: Any
+    mesh: GangMesh
+
+
+def _piece(x: torch.Tensor, spec, mesh: GangMesh, rank: int) -> torch.Tensor:
+    """Rank `rank`'s block of `x` under `spec`, on its device."""
+    for dim, entry in enumerate(spec):
+        axes = as_axes(entry)
+        if axes:
+            n = mesh.axis_size(axes)
+            if x.shape[dim] % n:
+                raise ValueError(f"shard_tree: dim {dim} of {tuple(x.shape)} does not "
+                                 f"divide over {axes} ({n})")
+            size = x.shape[dim] // n
+            x = x.narrow(dim, mesh.axis_index(rank, axes) * size, size)
+    return x.to(mesh.devices[rank])
+
+
+def _is_meta(mesh: GangMesh) -> bool:
+    return all(d.type == "meta" for d in mesh.devices)
+
+
+def shard_tree(tree, specs, mesh: GangMesh) -> Sharded:
+    """`tree` (a tensor or a tree of them) cut by `specs` over `mesh`."""
+    ranks = [0] if _is_meta(mesh) else range(mesh.n_ranks)
+    if torch.is_tensor(tree):
+        return Sharded([_piece(tree, specs, mesh, r) for r in ranks], specs, mesh)
+    return Sharded([walk(lambda path, x, n, s, r=r: _piece(x, s, mesh, r), tree, specs)
+                    for r in ranks], specs, mesh)
+
+
+def _global_shape(local: torch.Tensor, spec, mesh: GangMesh):
+    return tuple(n * (mesh.axis_size(spec[d]) if d < len(spec) else 1)
+                 for d, n in enumerate(local.shape))
+
+
+def _join(spec, pieces: List[torch.Tensor], mesh: GangMesh) -> torch.Tensor:
+    """The whole tensor of `pieces` (one per rank) under `spec`, on rank
+    0's device: each block from the rank at coordinate 0 of every axis the
+    spec does not use."""
+    used = {a for e in spec for a in as_axes(e)}
+    out = pieces[0].new_empty(_global_shape(pieces[0], spec, mesh), device=mesh.devices[0])
+    for r, x in enumerate(pieces):
+        if any(mesh.axis_index(r, a) for a in mesh.axis_names if a not in used):
+            continue
+        idx = tuple(slice(mesh.axis_index(r, spec[d]) * n, (mesh.axis_index(r, spec[d]) + 1) * n)
+                    if d < len(spec) and as_axes(spec[d]) else slice(None)
+                    for d, n in enumerate(x.shape))
+        out[idx] = x.to(out.device)
+    return out
+
+
+def unshard_tree(sharded: Sharded):
+    """The inverse of `shard_tree`: the whole tree on rank 0's device."""
+    if _is_meta(sharded.mesh):
+        raise ValueError("unshard_tree: a meta mesh holds rank 0's shapes only")
+    if torch.is_tensor(sharded.local[0]):
+        return _join(sharded.specs, sharded.local, sharded.mesh)
+    return walk(lambda path, spec, n, *pieces: _join(spec, list(pieces), sharded.mesh),
+                sharded.specs, *sharded.local)
+
+
+class _MetaGroup(GangMesh):
+    """The meta mesh of one collective's axes, every member holding the same
+    shapes: each collective computes one member's result (tiled, as
+    `GangMesh`'s), counts its bytes for member 0 alone (a group of one
+    counts nothing) and hands it to every member."""
+
+    def _one(self, kind: str, out: torch.Tensor) -> List[torch.Tensor]:
+        if self.n_ranks > 1:
+            n = out.numel() * out.element_size()
+            self.collective_bytes[0][kind] += n
+            self.collective_bytes[0]["total"] += n
+        return [out] * self.n_ranks
+
+    def ppermute(self, xs, axes):
+        return self._one("collective-permute", xs[0].clone())
+
+    def all_to_all(self, xs, axes, *, split_axis: int, concat_axis: int):
+        piece = xs[0].tensor_split(self.axis_size(axes), split_axis)[0]
+        return self._one("all-to-all", torch.cat([piece] * self.axis_size(axes), concat_axis))
+
+    def all_gather(self, xs, axes, *, axis: int):
+        return self._one("all-gather", torch.cat([xs[0]] * self.axis_size(axes), axis))
+
+    def psum(self, xs, axes):
+        return self._one("all-reduce", xs[0].clone())
+
+    pmax = psum
+
+    def psum_scatter(self, xs, axes, *, scatter_dimension: int):
+        piece = xs[0].tensor_split(self.axis_size(axes), scatter_dimension)[0]
+        return self._one("reduce-scatter", piece.contiguous())
+
+
+@functools.lru_cache(maxsize=64)
+def _meta_group(shape, names) -> _MetaGroup:
+    return _MetaGroup([torch.device("meta")] * math.prod(shape), shape, names)
+
+
+class Rank:
+    """One rank's handle inside `run_lockstep`: its index over mesh axes,
+    its block of a tensor, and the collectives it joins with the other
+    ranks of its groups (``jax.lax`` semantics, tiled).  A collective over
+    axes of extent 1 is the identity and counts nothing."""
+
+    def __init__(self, mesh: GangMesh, rank: int, meet=None):
+        self.mesh, self.rank, self._meet = mesh, rank, meet
+
+    def size(self, axes: Axes) -> int:
+        return self.mesh.axis_size(axes)
+
+    def index(self, axes: Axes) -> int:
+        return self.mesh.axis_index(self.rank, axes)
+
+    def local(self, x: torch.Tensor, dim: int, axes: Axes) -> torch.Tensor:
+        """The rank's piece of `x` along `dim` over `axes` (a view)."""
+        n = self.size(axes)
+        if n == 1:
+            return x
+        size = x.shape[dim] // n
+        return x.narrow(dim, self.index(axes) * size, size)
+
+    def meet(self, axes: Axes, tag: str, fn: Callable, *args):
+        """``fn(mesh, *lists)[rank]``: `fn` run once over every rank's
+        `args` (a list per argument), as the mesh's own collectives take
+        them.  On a meta mesh, over the mesh of `axes` alone, every member
+        holding this rank's args (`_MetaGroup`)."""
+        if self._meet is not None:
+            return self._meet(tag, fn, args)
+        axes = as_axes(axes)
+        sub = _meta_group(tuple(self.mesh.shape[a] for a in axes), axes)
+        sub.reset_bytes()
+        out = fn(sub, *([a] * sub.n_ranks for a in args))[0]
+        for k, n in sub.collective_bytes[0].items():
+            self.mesh.collective_bytes[self.rank][k] += n
+        return out
+
+    def _collective(self, name: str, x, axes: Axes, **kw):
+        axes = as_axes(axes)
+        if self.size(axes) == 1:
+            return x
+        return self.meet(axes, f"{name} over {axes}",
+                         lambda m, xs: getattr(m, name)(xs, axes, **kw), x)
+
+    def all_gather(self, x, axes: Axes, *, axis: int):
+        return self._collective("all_gather", x, axes, axis=axis)
+
+    def psum(self, x, axes: Axes):
+        return self._collective("psum", x, axes)
+
+    def psum_scatter(self, x, axes: Axes, scatter_dimension: int):
+        return self._collective("psum_scatter", x, axes,
+                                scatter_dimension=scatter_dimension)
+
+    def all_to_all(self, x, axes: Axes, *, split_axis: int, concat_axis: int):
+        return self._collective("all_to_all", x, axes, split_axis=split_axis,
+                                concat_axis=concat_axis)
+
+
+def run_lockstep(mesh: GangMesh, body: Callable[[Rank], Any]) -> list:
+    """``[body(Rank(mesh, r)) for r in ranks]``, the bodies in lockstep
+    (`sp.common.lockstep`) without autograd; on a meta mesh rank 0's
+    alone.  Every rank must reach the same collectives in the same order:
+    one that meets another raises."""
+    if _is_meta(mesh):
+        with torch.no_grad():
+            return [body(Rank(mesh, 0))]
+
+    def run(r, meet):
+        with torch.no_grad():
+            return body(Rank(mesh, r, meet))
+
+    def collective(calls):
+        tags = {tag for tag, _, _ in calls}
+        if len(tags) != 1:
+            raise RuntimeError(f"run_lockstep: the ranks meet at different "
+                               f"collectives: {sorted(tags)}")
+        fn = calls[0][1]
+        return fn(mesh, *(list(a) for a in zip(*(args for _, _, args in calls))))
+    return lockstep(mesh.n_ranks, run, collective)
+
+
+# ---------------------------------------------------------------------------
+# the partitioned steps
+# ---------------------------------------------------------------------------
+def _mesh_of(*trees: Sharded) -> GangMesh:
+    mesh = trees[0].mesh
+    if any(t.mesh is not mesh for t in trees):
+        raise ValueError("partitioned step: the arguments are cut over different meshes")
+    if not _is_meta(mesh) and any(len(t.local) != mesh.n_ranks for t in trees):
+        raise ValueError("partitioned step: an argument lacks a rank's tree")
+    return mesh
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in tp.FAMILIES:
+        raise NotImplementedError(
+            f"partitioned steps cover the {' and '.join(tp.FAMILIES)} families, "
+            f"not {cfg.family}")
+
+
+def prefill(cfg: ModelConfig, params: Sharded, batch: Sharded, cache: Sharded, *,
+            impl: str = "auto", long_context: bool = False):
+    """`model.prefill` partitioned: (last-token logits (B, V) sharded over
+    the batch and vocab axes, the cache) as `Sharded`.  The caches' pieces
+    are written in place."""
+    _check_family(cfg)
+    mesh = _mesh_of(params, batch, cache)
+    tok = batch.local[0]["tokens"]
+    B, S = _global_shape(tok, batch.specs["tokens"], mesh)
+    if cfg.family == "vlm":
+        S += batch.local[0]["embeds"].shape[1]
+    pl = tp.plan(cfg, mesh, batch=B, seq=S, long_context=long_context,
+                 tok_spec=batch.specs["tokens"], cache_spec=cache.specs["k"])
+    outs = run_lockstep(mesh, lambda rk: tp.prefill_rank(
+        rk, cfg, pl, params.local[rk.rank], params.specs, batch.local[rk.rank],
+        cache.local[rk.rank], impl=impl))
+    return (Sharded([o[0] for o in outs], _logits_spec(pl, params), mesh),
+            Sharded([o[1] for o in outs], cache.specs, mesh))
+
+
+def serve(cfg: ModelConfig, params: Sharded, cache: Sharded, token: Sharded, *,
+          impl: str = "auto", ring_buffer: bool = False, long_context: bool = False):
+    """`model.decode_step` partitioned: (logits (B, V) sharded over the
+    batch and vocab axes, the cache) as `Sharded`."""
+    _check_family(cfg)
+    mesh = _mesh_of(params, cache, token)
+    (B,) = _global_shape(token.local[0], token.specs, mesh)
+    pl = tp.plan(cfg, mesh, batch=B, seq=1, long_context=long_context,
+                 tok_spec=token.specs, cache_spec=cache.specs["k"])
+    outs = run_lockstep(mesh, lambda rk: tp.serve_rank(
+        rk, cfg, pl, params.local[rk.rank], params.specs, cache.local[rk.rank],
+        token.local[rk.rank], impl=impl, ring_buffer=ring_buffer))
+    return (Sharded([o[0] for o in outs], _logits_spec(pl, params), mesh),
+            Sharded([o[1] for o in outs], cache.specs, mesh))
+
+
+def _logits_spec(pl: tp.Plan, params: Sharded) -> PartitionSpec:
+    """(batch, vocab): the batch's axes, the lm head's column axes."""
+    return P(pl.batch, tuple(a for a in as_axes(params.specs["lm_head"][1])
+                             if a == "model"))

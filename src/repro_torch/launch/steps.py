@@ -13,6 +13,13 @@ serving steps with long_context when the batch is one sequence), which
 sends the serve step's decode attention over a sharded cache sequence to
 the sequence-sharded decode (`layers._cached_decode_attention`).
 
+Given `launch.partition.Sharded` arguments (`partition.shard_tree` over
+the spec trees of `launch/shardings.py`), the prefill and serve steps of
+the dense and vlm families run partitioned over the arguments' mesh, as
+XLA partitions the reference's under its rules: each rank holds its
+shards and runs `models/tp.py`'s body in lockstep with the others.  Whole
+tensors take the path above.
+
 `params_structs`, `opt_structs`, `batch_structs` and `cache_structs` are
 the reference's ``ShapeDtypeStruct`` helpers: the same trees on the "meta"
 device, shapes and dtypes without storage (`launch/dryrun.py`).
@@ -24,6 +31,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch import partition
 from repro_torch.models import model as mdl
 from repro_torch.models.sharding import standard_rules, use_rules
 from repro_torch.training.optimizer import adamw_init, adamw_update
@@ -121,9 +129,10 @@ def build_train_step(cfg: ModelConfig, *, impl: str = "torch", remat: bool = Tru
     """train_step(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}): `loss_and_grads` with remat, then one AdamW update in
     place.  With `mesh`, the step runs under its fsdp rules, as the
-    reference's; in the port they steer nothing (a train step never
-    decodes, and the single controller holds whole tensors), so a host
-    mesh over every visible card does not shard the training."""
+    reference's; here they steer nothing (a train step never decodes) and
+    the step takes whole tensors: the partitioned FSDP train step (sharded
+    gradients and AdamW moments, a vocab-parallel loss) is not ported yet,
+    so a host mesh over every visible card does not shard the training."""
     rules = _rules(mesh, fsdp=True)
 
     def train_step(params, opt_state, batch: Dict[str, Any]):
@@ -136,9 +145,15 @@ def build_train_step(cfg: ModelConfig, *, impl: str = "torch", remat: bool = Tru
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *, impl: str = "auto",
                        mesh=None):
-    rules = _rules(mesh, long_context=(shape.global_batch == 1))
+    """prefill_step(params, batch, cache) -> (last-token logits, cache);
+    with `Sharded` arguments partitioned (`partition.prefill`)."""
+    long_context = shape.global_batch == 1
+    rules = _rules(mesh, long_context=long_context)
 
     def prefill_step(params, batch, cache):
+        if isinstance(params, partition.Sharded):
+            return partition.prefill(cfg, params, batch, cache, impl=impl,
+                                     long_context=long_context)
         with use_rules(rules), torch.no_grad():
             return mdl.prefill(cfg, params, batch, cache, impl=impl)
     return prefill_step
@@ -146,10 +161,16 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *, impl: str = "aut
 
 def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, *, impl: str = "auto",
                      mesh=None):
+    """serve_step(params, cache, token) -> (logits, cache); with `Sharded`
+    arguments partitioned (`partition.serve`)."""
     ring = ring_buffer(cfg, shape)
-    rules = _rules(mesh, long_context=(shape.global_batch == 1))
+    long_context = shape.global_batch == 1
+    rules = _rules(mesh, long_context=long_context)
 
     def serve_step(params, cache, token):
+        if isinstance(params, partition.Sharded):
+            return partition.serve(cfg, params, cache, token, impl=impl,
+                                   ring_buffer=ring, long_context=long_context)
         with use_rules(rules), torch.no_grad():
             return mdl.decode_step(cfg, params, cache, token, impl=impl,
                                    ring_buffer=ring)

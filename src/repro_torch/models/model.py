@@ -354,12 +354,14 @@ def param_count(params: Params) -> int:
     return sum(t.numel() for t in param_leaves(params))
 
 
-def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor,
+                       offset: int = 0) -> torch.Tensor:
     """Vocab is padded to a multiple of 256 (ModelConfig.padded_vocab);
-    padding positions never win softmax/argmax."""
+    padding positions never win softmax/argmax.  `logits` holds the vocab
+    columns from `offset` on (a vocab-parallel slice)."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
-    pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+    pad = offset + torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab_size
     return logits.masked_fill(pad, -1e30)
 
 
@@ -389,16 +391,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0,
     return cache
 
 
-def _write_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """dst (B, KV, S_max, hd) <- src (B, KV, S, hd) from position 0.  Past
-    S_max, the sliding-window ring buffer: the most recent S_max positions,
-    rolled so that token t sits at slot t % S_max (decode writes at
+def _prefix_slots(src: torch.Tensor, S_max: int) -> torch.Tensor:
+    """What a cache of S_max slots holds from slot 0 after a prefill of src
+    (B, KV, S, hd) from position 0: src itself, or past S_max the
+    sliding-window ring buffer: the most recent S_max positions, rolled so
+    that token t sits at slot t % S_max (decode writes at
     cache_len % S_max)."""
-    S_max, S = dst.shape[2], src.shape[2]
+    S = src.shape[2]
     if S <= S_max:
-        dst[:, :, :S] = src
-    else:
-        dst.copy_(torch.roll(src[:, :, S - S_max:], S % S_max, dims=2))
+        return src
+    return torch.roll(src[:, :, S - S_max:], S % S_max, dims=2)
+
+
+def _write_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst (B, KV, S_max, hd) <- src (B, KV, S, hd) from position 0, in the
+    slots `_prefix_slots` gives."""
+    slots = _prefix_slots(src, dst.shape[2])
+    dst[:, :, :slots.shape[2]] = slots
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],

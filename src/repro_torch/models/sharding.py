@@ -2,15 +2,17 @@
 ``models/sharding.py``: code names a tensor's dims by *logical* axes, and a
 `ShardingRules` mapping (set per launch) resolves them to mesh axes.
 
-The port's mesh is the single controller's `GangMesh`, which holds whole
-tensors: there is no partitioner to hand a spec to.  `constrain` and
-`constrain_first` therefore resolve the spec as the reference does (axes
-that do not divide a dim are dropped, a mesh axis serves one dim, the first
-eligible one) and return the tensor unchanged; `resolve_spec` and
-`resolve_first` give the resolved spec.  What the rules steer in the port
-is the decode attention (`layers._cached_decode_attention`: a sharded
-"cache_seq" sends it to the sequence-sharded decode) and the dry run's
-spec trees (`launch/shardings.py`).
+The port's mesh is the single controller's `GangMesh`.  `resolve_spec` and
+`resolve_first` resolve a spec as the reference does (axes that do not
+divide a dim are dropped, a mesh axis serves one dim, the first eligible
+one); `constrain` and `constrain_first`, the reference's sharding
+constraints, resolve it and return the tensor unchanged: a whole-tensor
+step has no partitioner to hand a spec to.  What the rules steer is the
+partitioned prefill and serve steps, whose per-rank layouts
+(`models/tp.plan`) are the specs the rules give the reference's call
+sites; the whole-tensor decode attention (`layers._cached_decode_attention`:
+a sharded "cache_seq" sends it to the sequence-sharded decode); and the
+dry run's spec trees (`launch/shardings.py`).
 """
 from __future__ import annotations
 
@@ -129,7 +131,8 @@ def resolve_first(shape, *options) -> Optional[PartitionSpec]:
 
 def constrain(x, *logical_axes: Optional[str]):
     """The reference's sharding constraint: resolves the spec and returns x
-    unchanged (the single controller holds whole tensors)."""
+    unchanged (a whole-tensor step; the partitioned steps lay out their
+    shards by `models/tp.plan`)."""
     resolve_spec(x.shape, *logical_axes)
     return x
 

@@ -1,0 +1,364 @@
+"""Per-rank bodies of the dense and vlm families under the sharding rules:
+what `models/layers.py` and the dense branch of `models/model.py` become
+when XLA's SPMD partitioner splits the reference's steps under
+`standard_rules`, written out for one rank of a `GangMesh`.  The caller
+(`launch/partition.py`) runs one body per rank in lockstep; a body reaches
+the other ranks only through its `Rank`'s collectives.
+
+The layouts come from the reference's call sites through `resolve_spec` /
+`resolve_first` (`plan`), not from a fixed plan:
+
+* the residual stream ("batch", "seq", None): each rank holds its batch
+  rows and its piece of the sequence, and all-gathers the sequence before
+  each norm and projection;
+* Q, K, V column-parallel over "heads" / "kv_heads" where the rules give
+  heads; where the head count does not divide the axis, the reference's
+  second option: the query's rows over "seq" (B1 at their q_offset) with
+  K and V whole;
+* ``wo`` and ``w_down`` row-parallel: their partial sums reduce-scattered
+  onto the residual's sequence, or all-reduced where it is not sharded;
+  ``w_gate`` / ``w_up`` over "ff";
+* the embedding over "vocab" (each rank looks up the ids of its rows of the
+  table, zeros elsewhere, and the ranks sum), the lm head over "vocab"
+  with the padded vocabulary masked on each rank's slice;
+* FSDP leaves (sharded over the batch axes) all-gathered before their
+  layer;
+* the prefill's K/V, head-sharded, moved by an all-to-all into the
+  cache's layout (`launch/shardings.cache_specs`: sequence over "model",
+  or over the batch axes and "model" for one sequence), written as
+  `model._write_prefix` writes (the ring roll past the cache's length);
+  the serve step writes a token's K/V on the rank whose slice holds its
+  position and decodes with `sp.decode.distributed_decode_local` over the
+  cache's sequence axes.
+
+A dim that its axes do not divide stays whole, as the rules leave it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models import model as mdl
+from repro_torch.models.sharding import (resolve_first, resolve_spec,
+                                         standard_rules, use_rules)
+from repro_torch.sp.common import as_axes
+from repro_torch.sp.decode import distributed_decode_local
+
+Axes = Tuple[str, ...]
+FAMILIES = ("dense", "vlm")
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The mesh axes of one step's layouts (() = whole)."""
+    batch: Axes        # the batch rows: residual, tokens, cache
+    seq: Axes          # the residual's sequence (prefill)
+    tok_seq: Axes      # the tokens' sequence (`shardings.batch_specs`)
+    q_heads: Axes      # q's heads, or
+    q_rows: Axes       # q's rows (the fallback), or neither: q whole
+    kv_heads: Axes
+    cache_seq: Axes    # the KV cache's sequence
+
+
+def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
+         tok_spec=None, cache_spec=None) -> Plan:
+    """The layouts the reference's call sites give a step of `batch`
+    sequences of `seq` positions (1: the serve step) under
+    ``standard_rules(mesh, long_context=...)``; `tok_spec` and
+    `cache_spec` are the tokens' and the "k" cache's specs."""
+    B, S, d = batch, seq, cfg.d_model
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    with use_rules(standard_rules(mesh, long_context=long_context)):
+        xs = resolve_spec((B, S, d), "batch", "seq", None)
+        qs = (resolve_first((B, H, S, hd), ("batch", "heads", None, None),
+                            ("batch", None, "seq", None))
+              or resolve_first((B, H, S, hd), (None, "heads", None, None),
+                               (None, None, "seq", None)))
+        ks = (resolve_first((B, KV, S, hd), ("batch", "kv_heads", None, None),
+                            ("batch", None, None, None))
+              or resolve_first((B, KV, S, hd), (None, "kv_heads", None, None),
+                               (None, None, None, None)))
+    p = Plan(batch=as_axes(xs[0]), seq=as_axes(xs[1]) if S > 1 else (),
+             tok_seq=as_axes(tok_spec[1]) if tok_spec is not None and len(tok_spec) > 1
+             else (),
+             q_heads=as_axes(qs[1]) if qs is not None and S > 1 else (),
+             q_rows=as_axes(qs[2]) if qs is not None and S > 1 else (),
+             kv_heads=as_axes(ks[1]) if ks is not None and S > 1 else (),
+             cache_seq=as_axes(cache_spec[3]) if cache_spec is not None else ())
+    for what, spec in (("tokens", tok_spec), ("cache", cache_spec)):
+        ax = () if spec is None else as_axes(spec[0 if what == "tokens" else 1])
+        if spec is not None and ax != p.batch:
+            raise ValueError(f"partitioned step: the {what}' batch axes {ax} are "
+                             f"not the residual's {p.batch}")
+    if p.q_rows and p.q_rows != p.seq:
+        raise ValueError(f"partitioned step: q's rows over {p.q_rows}, the "
+                         f"residual's over {p.seq}")
+    return p
+
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+def _model(entry) -> Axes:
+    """The "model" part of a spec entry."""
+    return tuple(a for a in as_axes(entry) if a == "model")
+
+
+def _weight(rk, w: torch.Tensor, spec) -> torch.Tensor:
+    """`w` all-gathered over every axis but "model" (its FSDP axes)."""
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in as_axes(entry) if a != "model")
+        if axes:
+            w = rk.all_gather(w, axes, axis=dim)
+    return w
+
+
+def _col(rk, x, p, ps, w: str, b: str = ""):
+    """(x @ w + b, the axes of its columns) for a column-parallel w."""
+    y = L.linear(x, _weight(rk, p[w], ps[w]), p.get(b))
+    return y, _model(ps[w][-1])
+
+
+def _to_cols(rk, t, have: Axes, want: Axes):
+    """t's last dim, sharded over `have`, sharded over `want` instead."""
+    if have == want:
+        return t
+    return rk.local(rk.all_gather(t, have, axis=-1), -1, want)
+
+
+def _to_rows(rk, t, cols: Axes, rows: Axes):
+    """(b, S, C / |cols|) column pieces to (b, S / |rows|, C) row pieces:
+    an all-to-all where `rows` ends with `cols`."""
+    if cols and rows[-len(cols):] == cols:
+        t = rk.local(t, 1, rows[:-len(cols)])
+        return rk.all_to_all(t, cols, split_axis=1, concat_axis=-1)
+    return rk.local(rk.all_gather(t, cols, axis=-1), 1, rows)
+
+
+def _reduce_to(rk, y, summed: Axes, seq: Axes, done: Axes = ()):
+    """The sum over `summed` of the partial sums `y` (b, S, d), cut to the
+    rank's piece of the sequence over `seq`, of which `y` is already cut
+    over the leading axes `done`: a reduce-scatter where `seq` ends with
+    `summed`, else an all-reduce and a local cut."""
+    if seq[:len(done)] != done:
+        raise ValueError(f"partitioned step: {done} does not lead {seq}")
+    rest = seq[len(done):]
+    if summed and rest[-len(summed):] == summed:
+        return rk.psum_scatter(rk.local(y, 1, rest[:-len(summed)]), summed, 1)
+    return rk.local(rk.psum(y, summed), 1, rest)
+
+
+def _row(rk, h, h_cols: Axes, p, ps, w: str, seq: Axes):
+    """h @ w for a row-parallel w, h's last dim sharded over `h_cols`, in
+    the residual's layout."""
+    rows = _model(ps[w][0])
+    h = _to_cols(rk, h, h_cols, rows)
+    return _reduce_to(rk, L.linear(h, _weight(rk, p[w], ps[w])), rows, seq)
+
+
+def _kv_range(h0: int, nh: int, n_rep: int, kv0: int, nkv: int):
+    """The rank's K/V heads [lo, hi) (of its `nkv` from `kv0`) that its
+    query heads [h0, h0 + nh) read, as B1 pairs them (query head j with
+    key head j // (nh / (hi - lo)))."""
+    lo, hi = h0 // n_rep, (h0 + nh - 1) // n_rep + 1
+    if lo < kv0 or hi > kv0 + nkv:
+        raise ValueError(f"partitioned step: query heads [{h0}, {h0 + nh}) read "
+                         f"key heads [{lo}, {hi}), the rank holds [{kv0}, {kv0 + nkv})")
+    n = hi - lo
+    if nh % n or any((h0 + j) // n_rep - lo != j // (nh // n) for j in range(nh)):
+        raise NotImplementedError(f"partitioned step: query heads [{h0}, {h0 + nh}) "
+                                  f"do not pair evenly with key heads [{lo}, {hi})")
+    return lo - kv0, hi - kv0
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+def _embed(rk, cfg, p, ps, ids, prefix=None):
+    """(the lookup of `ids`, the table's vocab axes): a rank holding a slice
+    of the table looks up the ids in it and gives zeros for the others
+    (their sum over the vocab axes is the lookup); `prefix` (vlm patch
+    embeddings) is counted once, on the axes' first rank."""
+    dt = getattr(torch, cfg.dtype)
+    table = _weight(rk, p["embed"], ps["embed"])
+    va = _model(ps["embed"][0])
+    if va:
+        n = table.shape[0]
+        ids = ids - rk.index(va) * n
+        hit = (ids >= 0) & (ids < n)
+        e = torch.where(hit[..., None], table[ids.clamp(0, n - 1)],
+                        torch.zeros((), dtype=table.dtype, device=table.device))
+    else:
+        e = table[ids]
+    e = e.to(dt)
+    if prefix is not None:
+        prefix = prefix.to(dt)
+        if va and rk.index(va):
+            prefix = torch.zeros_like(prefix)
+        e = torch.cat([prefix, e], 1)
+    return e, va
+
+
+def _lm_head(rk, cfg, p, ps, x):
+    """Final norm and the lm head over the rank's vocab slice, the padded
+    vocabulary masked (`model._mask_padded_vocab` at the slice's offset)."""
+    x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    w = _weight(rk, p["lm_head"], ps["lm_head"])
+    v0 = rk.index(_model(ps["lm_head"][1])) * w.shape[1]
+    return mdl._mask_padded_vocab(cfg, torch.matmul(x, w.to(x.dtype)), v0)
+
+
+def _mlp(rk, p, ps, h, seq: Axes):
+    g, cols = _col(rk, h, p, ps, "w_gate")
+    u, _ = _col(rk, h, p, ps, "w_up")
+    return _row(rk, F.silu(g) * u, cols, p, ps, "w_down", seq)
+
+
+def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
+    """Prefill attention of the rank's normalised rows `h` (b, S, d), the
+    whole sequence: (its output in the residual's layout, (K, V) as
+    (b, KV / |kv_heads|, S, hd))."""
+    b, S, _ = h.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, qc = _col(rk, h, p, ps, "wq", "bq")
+    h0, nh, q0 = 0, H, 0
+    if pl.q_heads:
+        q = _to_cols(rk, q, qc, pl.q_heads)
+        nh = H // rk.size(pl.q_heads)
+        h0 = rk.index(pl.q_heads) * nh
+    elif pl.q_rows:
+        q = _to_rows(rk, q, qc, pl.q_rows)
+        q0 = rk.index(pl.q_rows) * q.shape[1]
+    else:
+        q = rk.all_gather(q, qc, axis=-1)
+    sq = q.shape[1]
+    q = L.rope(q.reshape(b, sq, nh, hd), positions[q0:q0 + sq], cfg.rope_theta)
+    k, kc = _col(rk, h, p, ps, "wk", "bk")
+    v, vc = _col(rk, h, p, ps, "wv", "bv")
+    k, v = _to_cols(rk, k, kc, pl.kv_heads), _to_cols(rk, v, vc, pl.kv_heads)
+    nkv = KV // rk.size(pl.kv_heads)
+    k = L.rope(k.reshape(b, S, nkv, hd), positions, cfg.rope_theta)
+    kh, vh = k.transpose(1, 2), v.reshape(b, S, nkv, hd).transpose(1, 2)
+    lo, hi = _kv_range(h0, nh, H // KV, rk.index(pl.kv_heads) * nkv, nkv)
+    o = ops.attention(q.transpose(1, 2), kh[:, lo:hi], vh[:, lo:hi], causal=True,
+                      sliding_window=cfg.sliding_window, q_offset=q0, impl=impl)
+    o = o.transpose(1, 2).reshape(b, sq, nh * hd)
+    if pl.q_rows:
+        rows = _model(ps["wo"][0])
+        if rows and pl.q_rows[-len(rows):] == rows:
+            # back to column pieces over the rows of the leading axes
+            o = rk.all_to_all(o, rows, split_axis=-1, concat_axis=1)
+            out = L.linear(o, _weight(rk, p["wo"], ps["wo"]))
+            return _reduce_to(rk, out, rows, pl.seq, done=pl.q_rows[:-len(rows)]), (kh, vh)
+        o = rk.all_gather(o, pl.q_rows, axis=1)
+    return _row(rk, o, pl.q_heads, p, ps, "wo", pl.seq), (kh, vh)
+
+
+def _write_prefix(rk, pl: Plan, dst, src) -> None:
+    """dst, the rank's (b, KV, S_max / |cache_seq|, hd) slice of one layer's
+    cache, <- its positions of the prefill's K or V, src (b, KV /
+    |kv_heads|, S, hd): the slots `model._prefix_slots` gives the whole
+    cache (padded to S_max), cut to the rank's slice by an all-to-all over
+    the head axes."""
+    s_loc = dst.shape[2]
+    s_max = s_loc * rk.size(pl.cache_seq)
+    slots = mdl._prefix_slots(src, s_max)
+    n_slots = slots.shape[2]
+    full = F.pad(slots, (0, 0, 0, s_max - n_slots))
+    kh, ca = pl.kv_heads, pl.cache_seq
+    if kh and ca[-len(kh):] == kh:
+        piece = rk.all_to_all(rk.local(full, 2, ca[:-len(kh)]), kh,
+                              split_axis=2, concat_axis=1)
+    else:
+        piece = rk.local(rk.all_gather(full, kh, axis=1), 2, ca)
+    n = max(0, min(n_slots - rk.index(ca) * s_loc, s_loc))
+    dst[:, :, :n] = piece[:, :, :n]
+
+
+def _write_token(rk, ca: Axes, dst, new, pos) -> None:
+    """dst (b, KV, S_loc, hd), the rank's slice over `ca` of one layer's
+    cache, <- new (b, KV, hd) at the global positions `pos` (b,) it holds;
+    the rows whose position lies on another rank keep their slot."""
+    s_loc = dst.shape[2]
+    local = pos.long() - rk.index(ca) * s_loc
+    own = (local >= 0) & (local < s_loc)
+    idx = local.clamp(0, s_loc - 1)
+    rows = torch.arange(dst.shape[0], device=dst.device)
+    dst[rows, :, idx] = torch.where(own[:, None, None], new.to(dst.dtype),
+                                    dst[rows, :, idx])
+
+
+# ---------------------------------------------------------------------------
+# per-rank steps
+# ---------------------------------------------------------------------------
+def prefill_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any],
+                 cache: Dict[str, Any], *, impl: str = "auto"):
+    """One rank's `model.prefill`: (its (b, V / |vocab|) last-token
+    logits, its cache with the K/V slices written in place and "len" set)."""
+    eps = cfg.norm_eps
+    tokens = rk.all_gather(batch["tokens"], pl.tok_seq, axis=1)
+    e, va = _embed(rk, cfg, p, ps, tokens,
+                   batch["embeds"] if cfg.family == "vlm" else None)
+    x = _reduce_to(rk, e, va, pl.seq)
+    b, S = e.shape[:2]
+    positions = torch.arange(S, device=x.device)
+    for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
+        h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), pl_["ln1"], eps)
+        h, (k, v) = _attention(rk, cfg, pl, pl_["attn"], ps_["attn"], h, positions,
+                               impl=impl)
+        x = x + h
+        h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), pl_["ln2"], eps)
+        x = x + _mlp(rk, pl_["mlp"], ps_["mlp"], h, pl.seq)
+        _write_prefix(rk, pl, cache["k"][li], k)
+        _write_prefix(rk, pl, cache["v"][li], v)
+    last = rk.all_gather(x[:, -1:], pl.seq, axis=1)[:, -1]
+    cache = dict(cache, len=torch.full((b,), S, dtype=torch.int32, device=x.device))
+    return _lm_head(rk, cfg, p, ps, last), cache
+
+
+def serve_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, cache: Dict[str, Any],
+               token: torch.Tensor, *, impl: str = "auto", ring_buffer: bool = False):
+    """One rank's `model.decode_step`: (its (b, V / |vocab|) logits, its
+    cache with the token's K/V written where its slice holds the position
+    and "len" advanced)."""
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    e, va = _embed(rk, cfg, p, ps, token)
+    x = rk.psum(e, va)
+    b = x.shape[0]
+    clen = cache["len"]
+    ca = pl.cache_seq
+    window = 0 if ring_buffer else cfg.sliding_window
+
+    def decode(mesh, q, k, v, lens):
+        return distributed_decode_local(q, k, v, lens, mesh=mesh, seq_axes=ca,
+                                        sliding_window=window)
+    for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
+        a, as_ = pl_["attn"], ps_["attn"]
+        h = L.rms_norm(x, pl_["ln1"], eps)
+        # every head on every rank: the decode reads q whole, the cache
+        # holds every K/V head
+        q, k, v = (rk.all_gather(*_col(rk, h, a, as_, w, "b" + w[1]), axis=-1)
+                   for w in ("wq", "wk", "wv"))
+        q = L.rope(q.reshape(b, 1, H, hd), clen[:, None], theta)[:, 0]
+        k = L.rope(k.reshape(b, 1, KV, hd), clen[:, None], theta)[:, 0]
+        kc, vc = cache["k"][li], cache["v"][li]
+        s_max = kc.shape[2] * rk.size(ca)
+        pos = clen % s_max if ring_buffer else clen
+        _write_token(rk, ca, kc, k, pos)
+        _write_token(rk, ca, vc, v.reshape(b, KV, hd), pos)
+        eff = torch.clamp(clen + 1, max=s_max) if ring_buffer else clen + 1
+        if ca:
+            o = rk.meet(ca, "decode", decode, q, kc, vc, eff)
+        else:
+            o = ops.decode_attention(q, kc, vc, eff, sliding_window=window, impl=impl)
+        x = x + _row(rk, o.reshape(b, H * hd), (), a, as_, "wo", ())
+        x = x + _mlp(rk, pl_["mlp"], ps_["mlp"], L.rms_norm(x, pl_["ln2"], eps), ())
+    cache = dict(cache, len=clen + 1)
+    return _lm_head(rk, cfg, p, ps, x), cache

@@ -11,17 +11,31 @@ attention (sequential merges) and distributed decode (all-reduce merge).
 collective takes a list with one tensor per rank and gives one back, with
 the ``jax.lax`` semantics the reference relies on.  A collective moves a
 tensor with ``.to(dst)``: a peer copy between distinct cards, no copy at
-all between ranks that share a device.
+all between ranks that share a device.  Every collective adds, for each
+rank of a group of two or more, the bytes of that rank's result to the
+rank's count under the reference's HLO names (`KINDS`), as
+``collective_bytes_from_hlo`` counts one device's program.
+
+`lockstep` runs one body per rank, each in a thread of its own, meeting at
+the collectives: the runner of the gang's layer quanta and of the
+partitioned steps (`launch/partition.py`).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple, Union
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 Axes = Union[str, Sequence[str], None]
+
+#: the collectives by the names of the reference's HLO count
+#: (``launch/dryrun.py`` ``_COLLECTIVES``)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
 
 
 def merge_partials(o1: torch.Tensor, lse1: torch.Tensor,
@@ -72,6 +86,21 @@ class GangMesh:
         self._coords = [dict(zip(names, (int(c) for c in
                                          np.unravel_index(r, shape))))
                         for r in range(len(devs))]
+        self.reset_bytes()
+
+    def reset_bytes(self) -> None:
+        """Set every rank's collective byte count to 0."""
+        self.collective_bytes: List[Dict[str, int]] = [
+            dict.fromkeys(KINDS + ("total",), 0) for _ in self.devices]
+
+    def _count(self, kind: str, out: List[torch.Tensor], groups) -> None:
+        for g in groups:
+            if len(g) < 2:
+                continue
+            for r in g:
+                n = out[r].numel() * out[r].element_size()
+                self.collective_bytes[r][kind] += n
+                self.collective_bytes[r]["total"] += n
 
     @property
     def n_ranks(self) -> int:
@@ -102,9 +131,11 @@ class GangMesh:
         """The neighbour shift ``perm = [(i, (i + 1) % p)]``: rank i's
         tensor lands on rank (i + 1) % p of its group."""
         out = [None] * self.n_ranks
-        for g in self.groups(axes):
+        groups = self.groups(axes)
+        for g in groups:
             for i, r in enumerate(g):
                 out[r] = xs[g[i - 1]].to(self.devices[r])
+        self._count("collective-permute", out, groups)
         return out
 
     def all_to_all(self, xs: List[torch.Tensor], axes: Axes, *,
@@ -113,12 +144,14 @@ class GangMesh:
         `split_axis`, sends piece i to rank i of its group, and joins what
         it receives along `concat_axis` in the senders' order."""
         out = [None] * self.n_ranks
-        for g in self.groups(axes):
+        groups = self.groups(axes)
+        for g in groups:
             p = len(g)
             pieces = [xs[r].tensor_split(p, split_axis) for r in g]
             for i, r in enumerate(g):
                 out[r] = torch.cat([pieces[j][i].to(self.devices[r])
                                     for j in range(p)], concat_axis)
+        self._count("all-to-all", out, groups)
         return out
 
     def all_gather(self, xs: List[torch.Tensor], axes: Axes, *,
@@ -126,19 +159,23 @@ class GangMesh:
         """Tiled all-gather: every rank gets its group's tensors joined
         along `axis` in group order."""
         out = [None] * self.n_ranks
-        for g in self.groups(axes):
+        groups = self.groups(axes)
+        for g in groups:
             for r in g:
                 out[r] = torch.cat([xs[j].to(self.devices[r]) for j in g], axis)
+        self._count("all-gather", out, groups)
         return out
 
     def _reduce(self, xs, axes, op):
         out = [None] * self.n_ranks
-        for g in self.groups(axes):
+        groups = self.groups(axes)
+        for g in groups:
             for r in g:
                 acc = xs[g[0]].to(self.devices[r])
                 for j in g[1:]:
                     acc = op(acc, xs[j].to(self.devices[r]))
                 out[r] = acc
+        self._count("all-reduce", out, groups)
         return out
 
     def psum(self, xs: List[torch.Tensor], axes: Axes) -> List[torch.Tensor]:
@@ -146,6 +183,23 @@ class GangMesh:
 
     def pmax(self, xs: List[torch.Tensor], axes: Axes) -> List[torch.Tensor]:
         return self._reduce(xs, axes, torch.maximum)
+
+    def psum_scatter(self, xs: List[torch.Tensor], axes: Axes, *,
+                     scatter_dimension: int) -> List[torch.Tensor]:
+        """Tiled reduce-scatter (``jax.lax.psum_scatter(..., tiled=True)``):
+        the sum over the group, of which rank i keeps piece i along
+        `scatter_dimension`; each rank adds up only its own piece."""
+        out = [None] * self.n_ranks
+        groups = self.groups(axes)
+        for g in groups:
+            pieces = [xs[r].tensor_split(len(g), scatter_dimension) for r in g]
+            for i, r in enumerate(g):
+                acc = pieces[0][i].to(self.devices[r])
+                for j in range(1, len(g)):
+                    acc = acc + pieces[j][i].to(self.devices[r])
+                out[r] = acc.contiguous()
+        self._count("reduce-scatter", out, groups)
+        return out
 
     # ---- global arrays <-> per-rank shards (the shard_map boundary) ------
     def shard(self, x: torch.Tensor, axis: int,
@@ -164,3 +218,40 @@ class GangMesh:
         0, joined along `axis` on rank 0's device."""
         g = next(g for g in self.groups(axes) if 0 in g)
         return torch.cat([xs[r].to(self.devices[0]) for r in g], axis)
+
+
+def lockstep(n: int, body: Callable, collective: Callable) -> list:
+    """``[body(rank, meet) for rank in range(n)]``, each body in a thread of
+    its own.  A body calls ``meet(*args)`` where the ranks must meet: it
+    blocks until every rank has called it, one thread then runs
+    ``collective`` over the list of every rank's args, and each rank's call
+    returns its own item of the result.  A rank that raises breaks the
+    barrier, so the others raise too instead of waiting forever; the first
+    error that is not that echo is raised here."""
+    args: list = [None] * n
+    result: list = []
+
+    def run_collective():
+        result[:] = collective(args)
+
+    barrier = threading.Barrier(n, action=run_collective)
+
+    def run(rank):
+        def meet(*a):
+            args[rank] = a
+            barrier.wait()
+            return result[rank]
+        try:
+            return body(rank, meet)
+        except BaseException:
+            barrier.abort()
+            raise
+
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        futures = [pool.submit(run, r) for r in range(n)]
+    errors = [f.exception() for f in futures if f.exception() is not None]
+    if errors:
+        raise next((e for e in errors
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return [f.result() for f in futures]

@@ -17,7 +17,7 @@ engine quanta while preemption latency (one quantum) stays bounded.
 
 The mesh is single-controller: this process drives every rank.  A layer
 quantum runs `model._dense_layer` for each rank in a thread of its own
-(`_lockstep`), and the layer's core attention (the `attn_fn` hook) meets
+(`sp.common.lockstep`), and the layer's core attention (the `attn_fn` hook) meets
 the other ranks there: one thread runs the hybrid SP attention over every
 rank's q/k/v and hands each rank its output.  A rank is any torch device:
 ``["cpu"] * 8`` on the CPU (the twin of XLA's forced host devices),
@@ -28,10 +28,8 @@ to their count, so with one device the long runs the single-replica path.
 from __future__ import annotations
 
 import functools
-import threading
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as mdl
-from repro_torch.sp.common import GangMesh
+from repro_torch.sp.common import GangMesh, lockstep
 from repro_torch.sp.hybrid import fast_sp_attention_local
 from repro_torch.sp.planner import HardwareSpec, SPPlan, plan_fast_sp
 
@@ -88,43 +86,6 @@ def plan_for_gang(cfg: ModelConfig, input_len: int, mesh: GangMesh,
     outer, inner = mesh.shape[OUTER_AXIS], mesh.shape[INNER_AXIS]
     return plan_fast_sp(cfg, input_len, n_nodes=outer,
                         gpus_per_node=max(inner, 1), tp=max(inner, 1), hw=hw)
-
-
-def _lockstep(n: int, body: Callable, collective: Callable) -> list:
-    """``[body(rank, meet) for rank in range(n)]``, each body in a thread of
-    its own.  A body calls ``meet(*args)`` where the ranks must meet: it
-    blocks until every rank has called it, one thread then runs
-    ``collective`` over the list of every rank's args, and each rank's call
-    returns its own item of the result.  A rank that raises breaks the
-    barrier, so the others raise too instead of waiting forever; the first
-    error that is not that echo is raised here."""
-    args: list = [None] * n
-    result: list = []
-
-    def run_collective():
-        result[:] = collective(args)
-
-    barrier = threading.Barrier(n, action=run_collective)
-
-    def run(rank):
-        def meet(*a):
-            args[rank] = a
-            barrier.wait()
-            return result[rank]
-        try:
-            return body(rank, meet)
-        except BaseException:
-            barrier.abort()
-            raise
-
-    with ThreadPoolExecutor(max_workers=n) as pool:
-        futures = [pool.submit(run, r) for r in range(n)]
-    errors = [f.exception() for f in futures if f.exception() is not None]
-    if errors:
-        raise next((e for e in errors
-                    if not isinstance(e, threading.BrokenBarrierError)),
-                   errors[0])
-    return [f.result() for f in futures]
 
 
 @dataclass
@@ -226,7 +187,7 @@ class GangSPRunner:
             return self._attn(list(q), list(k), list(v), causal=causal[0],
                               sliding_window=window[0])
 
-        outs = _lockstep(self.degree, body, collective)
+        outs = lockstep(self.degree, body, collective)
         st.x = [x for x, _ in outs]
         for i in range(hi - lo):
             st.kv_k.append([kvs[i].k for _, kvs in outs])

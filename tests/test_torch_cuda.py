@@ -480,3 +480,53 @@ def test_ring_decode_on_card_matches_cpu(cuda):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert flash_attention.launches == before[0] + cfg.num_layers
     assert flash_decode.launches == before[1] + 6 * cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_steps_on_card_match_cpu(cuda, shape):
+    """A reduced f32 dense model (8 q / 2 KV heads), 4 x 32 tokens into a
+    cache of 40 and 3 serve steps, partitioned over four ranks sharing the
+    card (B1 once per layer and rank, the plain distributed decode) against
+    the same four ranks on the CPU: logits and caches to 1e-4, the same
+    collective bytes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.partition import shard_tree, unshard_tree
+    from repro_torch.models import model as mdl
+    from repro_torch.sp.common import GangMesh
+    cfg = dataclasses.replace(reduced_config(get_config("llama31_70b"), n_heads=8, n_kv=2),
+                              dtype="float32")
+    params = mdl.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(7))
+    pre, dec = ShapeConfig("p", 32, 4, "prefill"), ShapeConfig("d", 40, 4, "decode")
+    runs, counts = [], []
+    before = flash_attention.launches, flash_decode.launches
+    for dev in ("cpu", cuda):
+        mesh = GangMesh([dev] * 4, shape, ("data", "model"))
+        p = _to(params, dev)
+        cache = mdl.init_cache(cfg, 4, 40, device=dev)
+        lg, c = steps.build_prefill_step(cfg, pre)(
+            shard_tree(p, shd.param_specs(cfg, p, mesh, fsdp=False), mesh),
+            shard_tree({"tokens": prompt.to(dev)}, shd.batch_specs(cfg, pre, mesh), mesh),
+            shard_tree(cache, shd.cache_specs(cfg, cache, mesh, global_batch=4), mesh))
+        sp = shard_tree(p, shd.param_specs(cfg, p, mesh, fsdp=False), mesh)
+        outs = [unshard_tree(lg).cpu()]
+        for i in range(3):
+            tok = shard_tree(prompt[:, i].to(dev), shd.batch_specs(cfg, dec, mesh)["token"],
+                             mesh)
+            lg, c = steps.build_serve_step(cfg, dec)(sp, c, tok)
+            outs.append(unshard_tree(lg).cpu())
+        whole = unshard_tree(c)
+        runs.append(outs + [whole["k"].cpu(), whole["v"].cpu()])
+        counts.append(mesh.collective_bytes)
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert counts[1] == counts[0]
+    assert flash_attention.launches == before[0] + cfg.num_layers * 4
+    assert flash_decode.launches == before[1]

@@ -19,7 +19,8 @@ full width: shapes only, on the meta device.
   full depth, and the replayed q-columns and SSD scans equal to ones run,
   for every family at reduced width;
 * the matrix: the skip set is the reference's `supports_shape` (66 run,
-  14 skipped), one shape per arch runs OK on both production meshes (the
+  14 skipped), one shape per arch runs OK on both production meshes, the
+  dense and vlm archs with their collective bytes (the
   full matrix takes more than a minute on one core: it runs in
   `chip_smoke.py`'s dryrun phase and `python -m
   repro_torch.launch.dryrun_all`), and the CLIs write their records.
@@ -291,7 +292,14 @@ def test_matrix_decode_combo_runs_on_both_meshes(arch):
         mem = rec["memory"]
         assert mem["fits"] == (mem["per_device_total"] <= 80e9)
         assert mem["temp_size_in_bytes"] > 0 and "estimate" in mem["temp_scope"]
-        assert rec["collectives"] is None and rec["collectives_reason"]
+        if get_config(arch).family in ("dense", "vlm"):
+            # counted by the partitioned serve step (tests/test_torch_partition.py)
+            assert set(rec["collectives"]) == {"all-gather", "all-reduce", "reduce-scatter",
+                                               "all-to-all", "collective-permute", "total"}
+            assert rec["collectives"]["total"] == sum(
+                v for k, v in rec["collectives"].items() if k != "total") > 0
+        else:
+            assert rec["collectives"] is None and rec["collectives_reason"]
         assert rec["cost"]["flops"] > 0
 
 

@@ -61,11 +61,12 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_dry_run_modules_are_checked():
-    """The dry run's and the sharding layer's modules are among the files
-    held to no jax / repro import above."""
+    """The dry run's, the sharding layer's and the partitioned steps'
+    modules are among the files held to no jax / repro import above."""
     checked = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
     assert {"launch/dryrun.py", "launch/dryrun_all.py", "launch/mesh.py",
-            "launch/shardings.py", "models/sharding.py"} <= checked
+            "launch/shardings.py", "models/sharding.py", "launch/partition.py",
+            "models/tp.py"} <= checked
 
 
 def test_package_imports_without_jax():
