@@ -148,7 +148,25 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                counted on the card equal to the dry run's count
                (``dryrun.collective_bytes``, what run_combo records) for
                the same arch, shapes, cache length and mesh; qwen2_7b's 28 heads on (1, 8)
-               through the sequence fallback (B1 at q_offset) the same way.
+               through the sequence fallback (B1 at q_offset) the same way, and
+               phi3_14b's 40 q / 10 KV heads on (1, 4), whose KV heads stay whole
+               and reach B1 repeated per query head;
+21. partition_train — the FSDP train step partitioned under the fsdp
+               rules (``partition.train``): mistral_7b at full width and
+               PT_LAYERS of its 32 layers in bf16, batch PT_BATCH x PT_SEQ,
+               remat, over [card] x 4 shaped (1, 4), (2, 2) and (4, 1) (FSDP
+               alone), against the whole-tensor step from the same weights:
+               the loss within PT_LOSS_TOL, the grad norm and every leaf's
+               gradient within PARTITION_REL_TOL in relative norm (on (4, 1)
+               a gradient reduce-scatter that drops the last rank's partial
+               must read above it on every leaf it touches), no kernel
+               launched, the card's collective bytes equal to the dry run's
+               count; reported: step and gradient seconds against the
+               whole-tensor step's, a profiled step's idle share and
+               operations, the card's peak, each rank's parameter, gradient
+               and moment GB; in f32 at PT_F32_LAYERS layers, two steps of
+               each mesh against two whole-tensor steps: loss and grad norm
+               to TRAIN_TOL, the params after each step by `_params_close`.
 
 Then one JSON line with every kernel's numbers (launches summed over the
 serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring, gang,
@@ -233,6 +251,17 @@ PARTITION_REL_TOL, PARTITION_F32_TOL = 5e-2, 1e-4
 #: partition: teacher-forced serve steps on a mesh whose all-reduce drops
 #: the last rank's partial (the first mesh, bf16), each above the limit
 PARTITION_FAULT_STEPS = 2
+#: partition_train: mistral_7b at full width and PT_LAYERS of its 32
+#: layers in bf16 (both steps hold their own weights and moments: the
+#: update runs in place; the whole-tensor step alone peaks at 48.4 GB at
+#: 32 layers), PT_BATCH x PT_SEQ tokens, remat, partitioned over each of
+#: PT_MESHES (data, model) on ranks that share the card; f32 at
+#: PT_F32_LAYERS, two steps
+PT_LAYERS, PT_F32_LAYERS = 8, 2
+PT_BATCH, PT_SEQ = 4, 2048
+PT_MESHES = ((1, 4), (2, 2), (4, 1))
+#: partition_train: bf16 loss against the whole-tensor step's, relative
+PT_LOSS_TOL = 1e-2
 #: peak GB measured by the train, vlm and ring phases, read by dryrun
 PEAK_GB = {}
 HBM_BPS = 3.35e12               # H100 SXM data sheet
@@ -1755,10 +1784,13 @@ def _account_holds(torch, dev):
     return holds
 
 
-def _rel_norms(got, want):
-    """Per step, the largest ||got - want|| / ||want|| over the batch's rows."""
+def _rel_norms(got, want, vocab=None):
+    """Per step, the largest ||got - want|| / ||want|| over the batch's rows,
+    over the first `vocab` logits (the padded vocabulary's -1e30 would
+    swamp any difference)."""
     from repro_torch.kernels.checks import rel_err
-    return [rel_err(g[None], w[None].float()) for (_, g), (_, w) in zip(got, want)]
+    return [rel_err(g[None, :, :vocab], w[None, :, :vocab].float())
+            for (_, g), (_, w) in zip(got, want)]
 
 
 def _same_tokens(got, want):
@@ -1953,6 +1985,7 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
     tol = PARTITION_REL_TOL if bf16 else PARTITION_F32_TOL
     B, S, N, C = PARTITION_BATCH, PARTITION_PROMPT, PARTITION_STEPS, PARTITION_CACHE
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+    V = cfg.vocab_size          # logits compared without the padded vocabulary
     pre = ShapeConfig(f"prefill_{B}x{S}", S, B, "prefill")
     dec = ShapeConfig(f"decode_{B}x{C}", C, B, "decode")
     params = init_params(cfg, seed=0, device=dev)
@@ -2006,7 +2039,7 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
                 pc["flash_attention"], layers * n)
         got = partition.unshard_tree(lg_s)
         first_same = bool(torch.equal(got.argmax(-1), lg.argmax(-1)))
-        logits_err = rel_err(got[None], lg[None].float())
+        logits_err = rel_err(got[None, :, :V], lg[None, :, :V].float())
         kv = partition.unshard_tree(c)
         kv_err = max(rel_err(kv[k][:, :, :, :S].flatten(0, 1), ref_kv[k].flatten(0, 1).float())
                      for k in ("k", "v"))
@@ -2032,7 +2065,7 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
         _expect("partition", f"{arch} {tag} flash_decode over {N} steps", sc["flash_decode"], 0)
         _expect("partition", f"{arch} {tag} flash_attention over {N} steps",
                 sc["flash_attention"], 0)
-        errs = _rel_norms(out, want)
+        errs = _rel_norms(out, want, V)
         steps_same, rows_same = _same_tokens(out, want)
         fails = []
         if bf16 and not first_same:
@@ -2070,7 +2103,7 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
         if bf16 and shape == meshes[0]:
             fp, fb, fc, _ = shards(_dropping_last_partial(mesh))
             fault = partition.unshard_tree(prefill(fp, fb, fc)[0])
-            row["dropped_partial_rel_err"] = rel_err(fault[None], lg[None].float())
+            row["dropped_partial_rel_err"] = rel_err(fault[None, :, :V], lg[None, :, :V].float())
             del fp, fb, fc, fault
             if row["dropped_partial_rel_err"] <= tol:
                 fails.append(f"a reduce-scatter without the last rank's partial reads "
@@ -2086,7 +2119,7 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
             for i in range(PARTITION_FAULT_STEPS):
                 lg_f, fc = serve(fp, fc, partition.shard_tree(want[i][0], tspec, fm))
                 fault_out.append((want[i][0], partition.unshard_tree(lg_f)))
-            row["dropped_psum_serve_rel_err"] = _rel_norms(fault_out, want)
+            row["dropped_psum_serve_rel_err"] = _rel_norms(fault_out, want, V)
             del fp, fc, fault_out
             if min(row["dropped_psum_serve_rel_err"]) <= tol:
                 fails.append(f"serve steps whose all-reduce drops the last rank's partial "
@@ -2112,7 +2145,9 @@ def phase_partition(torch, dev, smi):
             ("llama31_70b_f32", "llama31_70b", PARTITION_F32_LAYERS, "float32",
              PARTITION_MESHES),
             ("qwen2_7b_bf16", "qwen2_7b", PARTITION_F32_LAYERS, "bfloat16", ((1, 8),)),
-            ("qwen2_7b_f32", "qwen2_7b", PARTITION_F32_LAYERS, "float32", ((1, 8),))):
+            ("qwen2_7b_f32", "qwen2_7b", PARTITION_F32_LAYERS, "float32", ((1, 8),)),
+            ("phi3_14b_bf16", "phi3_14b", PARTITION_F32_LAYERS, "bfloat16", ((1, 4),)),
+            ("phi3_14b_f32", "phi3_14b", PARTITION_F32_LAYERS, "float32", ((1, 4),))):
         runs[name], counts = _partition_case(torch, dev, arch, layers, dtype, meshes)
         for k, v in counts.items():
             launches[k] += v
@@ -2120,6 +2155,192 @@ def phase_partition(torch, dev, smi):
          f32_tol=PARTITION_F32_TOL, runs=runs, launches=launches,
          phase_s=time.perf_counter() - t0)
     return launches
+
+
+def _grad_errs(got, want):
+    """Per leaf (in `param_leaves` order), ||got - want|| / ||want||."""
+    from repro_torch.models.model import param_leaves
+    return [float((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30))
+            for g, w in zip(param_leaves(got), param_leaves(want))]
+
+
+def _pt_batch(cfg, mesh, batch):
+    """A train batch cut by `batch_specs` over `mesh`."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import partition
+    from repro_torch.launch import shardings as shd
+    B, S = batch["tokens"].shape
+    return partition.shard_tree(batch, shd.batch_specs(
+        cfg, ShapeConfig("train", S, B, "train"), mesh), mesh)
+
+
+def _pt_shards(cfg, params, mesh, clone):
+    """params (a copy where `clone`: a step updates them in place) and a
+    fresh optimizer state cut by the fsdp specs over `mesh`, and the
+    per-rank GB of the params (= gradients) and the moments."""
+    from repro_torch.launch import partition
+    from repro_torch.launch import shardings as shd
+    from repro_torch.training import adamw_init
+    p = _tree_to(params, params["embed"].device) if clone else params
+    opt = adamw_init(p)
+    pspecs = shd.param_specs(cfg, p, mesh, fsdp=True)
+    ospecs = shd.opt_specs(pspecs, opt)
+    return (partition.shard_tree(p, pspecs, mesh), partition.shard_tree(opt, ospecs, mesh),
+            dict(params_gb=shd.per_device_bytes(p, pspecs, mesh) / 1e9,
+                 moments_gb=shd.per_device_bytes(opt, ospecs, mesh) / 1e9))
+
+
+def phase_partition_train(torch, dev, smi):
+    """The partitioned FSDP train step (module doc, 21)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, partition, steps, train
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import init_params
+    from repro_torch.models.model import param_leaves
+    from repro_torch.sp.common import GangMesh
+    from repro_torch.training import adamw_init
+
+    t0 = time.perf_counter()
+    full = get_config("mistral_7b")
+    B, S = PT_BATCH, PT_SEQ
+    shape = ShapeConfig(f"train_{B}x{S}", S, B, "train")
+    runs, launches = {}, dict.fromkeys(_counters(), 0)
+    # bf16: the whole-tensor step's gradients and one timed step, then per
+    # mesh the partitioned gradients and one timed step from a copy
+    cfg = dataclasses.replace(full, num_layers=PT_LAYERS)
+    params = init_params(cfg, seed=0, device=dev)
+    batch = train.make_batch(cfg, B, S, np.random.default_rng(0), dev)
+    (w_loss, w_grads), _, c = _run_counted(
+        torch, lambda: steps.loss_and_grads(cfg, params, batch))
+    _expect("partition_train", "a kernel in the whole-tensor gradients", sum(c.values()), 0)
+    w_loss = float(w_loss)
+    w_norm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                  for g in param_leaves(w_grads))))
+    p1 = _tree_to(params, dev)
+    o1 = adamw_init(p1)
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, w_info), w_s, _ = _run_counted(
+        torch, lambda: steps.build_train_step(cfg)(p1, o1, batch))
+    whole = dict(loss=w_loss, grad_norm=w_norm, step_s=w_s, step_loss=float(w_info["loss"]),
+                 card_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del p1, o1
+    torch.cuda.empty_cache()
+    bf16 = {}
+    for mshape in PT_MESHES:
+        tag = f"{mshape[0]}x{mshape[1]}"
+        mesh = GangMesh([dev] * 4, mshape, ("data", "model"))
+        p = partition.shard_tree(params, shd.param_specs(cfg, params, mesh, fsdp=True), mesh)
+        b = _pt_batch(cfg, mesh, batch)
+        (_, grads), grads_s, c = _run_counted(
+            torch, lambda: partition.loss_and_grads(cfg, p, b))
+        errs = _grad_errs(partition.unshard_tree(grads), w_grads)
+        del grads
+        torch.cuda.empty_cache()
+        sp, so, rank_gb = _pt_shards(cfg, params, mesh, clone=True)
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_bytes()
+        (_, so, info), step_s, sc = _run_counted(
+            torch, lambda: steps.build_train_step(cfg)(sp, so, b))
+        counted = dict(mesh.collective_bytes[0])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _profile_steps(torch, lambda: steps.build_train_step(cfg)(sp, so, b), 1)
+        del sp, so
+        torch.cuda.empty_cache()
+        record = dryrun.collective_bytes(cfg, shape, mesh)
+        loss = float(info["loss"])
+        row = dict(loss=loss, loss_rel_err=abs(loss - w_loss) / abs(w_loss),
+                   grad_norm=float(info["grad_norm"]),
+                   grad_norm_rel_err=abs(float(info["grad_norm"]) - w_norm) / w_norm,
+                   grads_rel_err_max=max(errs), grads_s=grads_s, step_s=step_s,
+                   card_peak_gb=peak, rank_gb=dict(rank_gb, grads_gb=rank_gb["params_gb"]),
+                   collective_bytes=counted, dry_run_collectives_equal=record == counted,
+                   step_profile=prof)
+        fails = []
+        if sum(c.values()) + sum(sc.values()):
+            fails.append(f"a kernel launched: {c} {sc}")
+        if row["loss_rel_err"] > PT_LOSS_TOL:
+            fails.append(f"loss {loss} against {w_loss}")
+        if row["grad_norm_rel_err"] > PARTITION_REL_TOL or max(errs) > PARTITION_REL_TOL:
+            fails.append(f"grad norm {row['grad_norm_rel_err']:.3e}, gradients up to "
+                         f"{max(errs):.3e} against the limit {PARTITION_REL_TOL}")
+        if not row["dry_run_collectives_equal"]:
+            fails.append(f"collective bytes on the card {counted} against the dry run's {record}")
+        if mshape == (4, 1):
+            # FSDP alone: the only reduce-scatters are the gradients' (the
+            # backward of the weights' all-gathers); drop the last rank's
+            fm = _dropping_last_partial(mesh)
+            fp = partition.Sharded(p.local, p.specs, fm)
+            fb = partition.Sharded(b.local, b.specs, fm)
+            _, fg = partition.loss_and_grads(cfg, fp, fb)
+            ferrs = _grad_errs(partition.unshard_tree(fg), w_grads)
+            del fg, fp, fb
+            touched = [e for e, spec in zip(ferrs, _spec_leaves(p.specs)) if any(spec)]
+            row["dropped_partial_rel_err_min"] = min(touched)
+            row["dropped_partial_leaves"] = len(touched)
+            if min(touched) <= PARTITION_REL_TOL:
+                fails.append(f"a gradient reduce-scatter without the last rank's partial "
+                             f"reads {min(touched):.3e}, inside the limit")
+        bf16[tag] = row
+        del p, b
+        torch.cuda.empty_cache()
+        if fails:
+            raise AssertionError(f"partition_train: bf16 on {tag}: " + "; ".join(fails))
+    runs["mistral_7b_bf16"] = dict(layers=cfg.num_layers, layers_full=full.num_layers,
+                                   batch=B, seq=S, whole=whole, **bf16)
+    del params, w_grads, batch
+    torch.cuda.empty_cache()
+
+    # f32: two steps of the whole-tensor step and of each partitioned one
+    cfg = dataclasses.replace(full, num_layers=PT_F32_LAYERS, dtype="float32")
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(1)
+    batches = [train.make_batch(cfg, B, S, rng, dev) for _ in range(2)]
+    p1 = _tree_to(params, dev)
+    o1 = adamw_init(p1)
+    want = []
+    for bt in batches:
+        p1, o1, info = steps.build_train_step(cfg)(p1, o1, bt)
+        want.append((float(info["loss"]), float(info["grad_norm"]), _tree_to(p1, "cpu")))
+    del p1, o1
+    f32 = {}
+    for mshape in PT_MESHES:
+        tag = f"{mshape[0]}x{mshape[1]}"
+        mesh = GangMesh([dev] * 4, mshape, ("data", "model"))
+        sp, so, _ = _pt_shards(cfg, params, mesh, clone=True)
+        row = {}
+        for i, bt in enumerate(batches):
+            sp, so, info = steps.build_train_step(cfg)(sp, so, _pt_batch(cfg, mesh, bt))
+            loss, norm = float(info["loss"]), float(info["grad_norm"])
+            wl, wn, wp = want[i]
+            for what, g_, w_ in (("loss", loss, wl), ("grad_norm", norm, wn)):
+                if not abs(g_ - w_) <= TRAIN_TOL * abs(w_):
+                    raise AssertionError(f"partition_train: f32 on {tag} step {i}: {what} "
+                                         f"{g_} against {w_}")
+            worst, off = _params_close(partition.unshard_tree(sp), wp)
+            row[f"step{i + 1}"] = dict(loss=loss, loss_rel_err=abs(loss - wl) / abs(wl),
+                                       grad_norm_rel_err=abs(norm - wn) / abs(wn),
+                                       params_max_abs_err=worst, params_outside_tol=off)
+        f32[tag] = row
+        del sp, so
+        torch.cuda.empty_cache()
+    runs["mistral_7b_f32"] = dict(layers=cfg.num_layers, batch=B, seq=S, tol=TRAIN_TOL, **f32)
+    del params, batches, want
+    torch.cuda.empty_cache()
+    _say("partition_train", nvidia_smi=smi, cut=f"{PT_LAYERS} of {full.num_layers} layers "
+         f"(bf16; f32 {PT_F32_LAYERS}): the whole-tensor and the partitioned step each hold "
+         "their own weights and moments", loss_tol=PT_LOSS_TOL, rel_tol=PARTITION_REL_TOL,
+         runs=runs, launches=launches, phase_s=time.perf_counter() - t0)
+    return launches
+
+
+def _spec_leaves(specs):
+    from repro_torch.launch.shardings import walk
+    out = []
+    walk(lambda path, spec, n: out.append(spec), specs)
+    return out
 
 
 def main() -> int:
@@ -2201,6 +2422,9 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in phase_partition(torch, dev, smi).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in phase_partition_train(torch, dev, smi).items():
         launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -40,14 +40,16 @@ same bytes with every unit.
 
 Collective bytes, which the reference parses from partitioned HLO
 (``collective_bytes_from_hlo``: each collective's result bytes in one
-device's program), come from the partitioner's own count: the prefill and
-serve steps of the dense and vlm families run partitioned
+device's program), come from the partitioner's own count: the train,
+prefill and serve steps of the dense and vlm families run partitioned
 (`launch/partition.py`) on meta ranks of the combo's mesh, rank 0's body
-alone, and the mesh counts rank 0's collective bytes by kind; a step
-deeper than 3 layers runs at 2 and 3 and is extrapolated (every layer
-moves the same bytes).  The train step and the other families have no
-partitioned step yet: their records carry ``"collectives": null`` and the
-reason (`collectives_reason`).
+alone, and the mesh counts rank 0's collective bytes by kind — the train
+step's backward too, each collective's dual (`sp.common.collective`),
+with FSDP over the batch axes ("pod", "data" on the multi-pod mesh); a
+step deeper than 3 layers runs at 2 and 3 and is extrapolated (every
+layer moves the same bytes).  The other families have no partitioned
+step yet: their records carry ``"collectives": null`` and the reason
+(`collectives_reason`).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
         --shape train_4k [--multi-pod] [--out build/dryrun_torch]
@@ -87,9 +89,6 @@ OUT = Path("build/dryrun_torch")
 
 def collectives_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
     """Why a combo's record carries no collective bytes (None: it does)."""
-    if shape.kind == "train":
-        return ("the partitioned train step (FSDP gradients, AdamW's factored "
-                "moments over sharded leaves, the vocab-parallel loss) is not ported yet")
     if cfg.family not in tp.FAMILIES:
         return (f"the partitioned {cfg.family} step is not ported yet: "
                 f"partitioned steps cover the {' and '.join(tp.FAMILIES)} families")
@@ -260,20 +259,30 @@ def step_account(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
 
 
 def _count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh,
-                       max_len: Optional[int]) -> Dict[str, int]:
+                       max_len: Optional[int], depth: int) -> Dict[str, int]:
     """One run of the partitioned step on meta ranks shaped like `mesh`:
-    rank 0's collective bytes by kind."""
+    rank 0's collective bytes by kind.  A train step's moments are those
+    of the model `depth` layers deep, cut to cfg's: the optimizer factors
+    a leaf by its stacked size (mistral_7b's wq at 8 layers, not at 3),
+    and a factored leaf's means move bytes."""
     mesh = GangMesh([torch.device("meta")] * mesh.n_ranks, tuple(mesh.shape.values()),
                     mesh.axis_names)
     params = st.params_structs(cfg)
-    fsdp = shd.needs_fsdp(cfg, mesh, shape.kind)
-    p = partition.shard_tree(params, shd.param_specs(cfg, params, mesh, fsdp=fsdp), mesh)
+    pspecs = shd.param_specs(cfg, params, mesh, fsdp=shd.needs_fsdp(cfg, mesh, shape.kind))
+    p = partition.shard_tree(params, pspecs, mesh)
+    batch = st.batch_structs(cfg, shape)
+    bspecs = shd.batch_specs(cfg, shape, mesh)
+    if shape.kind == "train":
+        opt = st.opt_structs(st.params_structs(dataclasses.replace(cfg, num_layers=depth)))
+        opt = opt._replace(moments=dict(opt.moments,
+                                        layers=opt.moments["layers"][:cfg.num_layers]))
+        st.build_train_step(cfg)(p, partition.shard_tree(opt, shd.opt_specs(pspecs, opt), mesh),
+                                 partition.shard_tree(batch, bspecs, mesh))
+        return dict(mesh.collective_bytes[0])
     cache = (st.cache_structs(cfg, shape) if max_len is None
              else mdl.init_cache(cfg, shape.global_batch, max_len, device="meta"))
     c = partition.shard_tree(cache, shd.cache_specs(cfg, cache, mesh,
                                                     global_batch=shape.global_batch), mesh)
-    batch = st.batch_structs(cfg, shape)
-    bspecs = shd.batch_specs(cfg, shape, mesh)
     # the account's replay: a plain attention column run once per shape
     with _Account(()) as acc, acc.replaying():
         if shape.kind == "prefill":
@@ -288,14 +297,15 @@ def _count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh,
 def collective_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh, *,
                      max_len: Optional[int] = None) -> Dict[str, int]:
     """Per device, the bytes of each kind of collective (and "total") the
-    partitioned prefill or serve step of `shape` moves on `mesh` (a cache
-    of `max_len` positions where given, else the shape's): counted on meta
-    ranks, at 2 and 3 layers extrapolated past 3."""
+    partitioned step of `shape` moves on `mesh` (prefill: into a cache of
+    `max_len` positions where given, else the shape's; train: forward,
+    remat and backward, the gradients' sums and the optimizer's): counted
+    on meta ranks, at 2 and 3 layers extrapolated past 3."""
     n, cut = _units(cfg)
     if n <= 3:
-        return _count_collectives(cfg, shape, mesh, max_len)
-    two = _count_collectives(cut(2), shape, mesh, max_len)
-    three = _count_collectives(cut(3), shape, mesh, max_len)
+        return _count_collectives(cfg, shape, mesh, max_len, n)
+    two = _count_collectives(cut(2), shape, mesh, max_len, n)
+    three = _count_collectives(cut(3), shape, mesh, max_len, n)
     return {k: three[k] + (n - 3) * (three[k] - two[k]) for k in three}
 
 

@@ -9,8 +9,13 @@ full-width model's shards on ranks that share one card cost no memory.
 rank (`sp.common.lockstep`); a body reaches the other ranks only through
 its `Rank`'s collectives, which the mesh counts by kind.  `prefill` and
 `serve` are the partitioned prefill and serve steps of the dense and vlm
-families (`models/tp.py`); `steps.build_prefill_step` and
-`build_serve_step` run them when given `Sharded` arguments.
+families (`models/tp.py`), `loss_and_grads` and `train` their FSDP train
+step; `steps.build_prefill_step`, `build_serve_step` and
+`build_train_step` run them when given `Sharded` arguments.  Under
+autograd the ranks' pieces form one graph (each collective one node over
+every rank's tensor, `sp.common.collective`), `Rank.remat` checkpoints
+one layer of every rank at once, and one backward runs from the caller's
+thread.
 
 A mesh whose ranks are all "meta" (the production meshes of the dry run)
 computes shapes only, and this module alone knows it: its `Sharded` holds
@@ -25,10 +30,10 @@ then the group's pmax and psums.
 """
 from __future__ import annotations
 
-import functools
 import math
+import weakref
 from dataclasses import dataclass
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -36,7 +41,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.shardings import walk
 from repro_torch.models import tp
 from repro_torch.models.sharding import P, PartitionSpec
-from repro_torch.sp.common import Axes, GangMesh, as_axes, lockstep
+from repro_torch.sp.common import Axes, GangMesh, as_axes, collective, lockstep
+from repro_torch.training import optimizer
 
 
 @dataclass
@@ -109,14 +115,19 @@ def unshard_tree(sharded: Sharded):
 class _MetaGroup(GangMesh):
     """The meta mesh of one collective's axes, every member holding the same
     shapes: each collective computes one member's result (tiled, as
-    `GangMesh`'s), counts its bytes for member 0 alone (a group of one
+    `GangMesh`'s), counts its bytes for rank 0 of `parent` (a group of one
     counts nothing) and hands it to every member."""
+
+    def __init__(self, parent: GangMesh, axes: Tuple[str, ...]):
+        shape = tuple(parent.shape[a] for a in axes)
+        super().__init__([torch.device("meta")] * math.prod(shape), shape, axes)
+        self.parent = parent
 
     def _one(self, kind: str, out: torch.Tensor) -> List[torch.Tensor]:
         if self.n_ranks > 1:
             n = out.numel() * out.element_size()
-            self.collective_bytes[0][kind] += n
-            self.collective_bytes[0]["total"] += n
+            self.parent.collective_bytes[0][kind] += n
+            self.parent.collective_bytes[0]["total"] += n
         return [out] * self.n_ranks
 
     def ppermute(self, xs, axes):
@@ -139,9 +150,40 @@ class _MetaGroup(GangMesh):
         return self._one("reduce-scatter", piece.contiguous())
 
 
-@functools.lru_cache(maxsize=64)
-def _meta_group(shape, names) -> _MetaGroup:
-    return _MetaGroup([torch.device("meta")] * math.prod(shape), shape, names)
+#: a meta mesh's groups, one per tuple of axes (the backward of a
+#: collective counts on its group after the forward's call has returned)
+_META_GROUPS: "weakref.WeakKeyDictionary[GangMesh, dict]" = weakref.WeakKeyDictionary()
+
+
+def _meta_group(mesh: GangMesh, axes: Tuple[str, ...]) -> _MetaGroup:
+    groups = _META_GROUPS.setdefault(mesh, {})
+    if axes not in groups:
+        groups[axes] = _MetaGroup(mesh, axes)
+    return groups[axes]
+
+
+class _Remat(torch.autograd.Function):
+    """`stage` (every rank's tensor -> every rank's result) run without
+    autograd, its inputs kept; the backward runs it again under autograd
+    (the ranks in lockstep once more) and backpropagates through that run
+    from the thread that runs the backward, the parameters' gradients
+    accumulating into their `.grad`: ``jax.checkpoint`` around one layer
+    of every rank."""
+
+    @staticmethod
+    def forward(ctx, stage, *xs):
+        ctx.stage = stage
+        ctx.save_for_backward(*xs)
+        return tuple(stage(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xs = [x.detach().requires_grad_(x.requires_grad) for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            ys = ctx.stage(xs)
+        pairs = [(y, g) for y, g in zip(ys, grads) if y.requires_grad]
+        torch.autograd.backward([y for y, _ in pairs], [g for _, g in pairs])
+        return (None, *(x.grad if x.requires_grad else None for x in xs))
 
 
 class Rank:
@@ -174,26 +216,43 @@ class Rank:
         holding this rank's args (`_MetaGroup`)."""
         if self._meet is not None:
             return self._meet(tag, fn, args)
-        axes = as_axes(axes)
-        sub = _meta_group(tuple(self.mesh.shape[a] for a in axes), axes)
-        sub.reset_bytes()
-        out = fn(sub, *([a] * sub.n_ranks for a in args))[0]
-        for k, n in sub.collective_bytes[0].items():
-            self.mesh.collective_bytes[self.rank][k] += n
-        return out
+        sub = _meta_group(self.mesh, as_axes(axes))
+        return fn(sub, *([a] * sub.n_ranks for a in args))[0]
 
     def _collective(self, name: str, x, axes: Axes, **kw):
         axes = as_axes(axes)
         if self.size(axes) == 1:
             return x
         return self.meet(axes, f"{name} over {axes}",
-                         lambda m, xs: getattr(m, name)(xs, axes, **kw), x)
+                         lambda m, xs: collective(m, name, xs, axes, **kw), x)
+
+    def barrier(self) -> None:
+        """Wait until every rank has come here."""
+        self.meet(self.mesh.axis_names, "barrier", lambda m: [None] * m.n_ranks)
+
+    def remat(self, tag: str, fn: Callable, x: torch.Tensor) -> torch.Tensor:
+        """``fn(rank, x)``, every rank's call run in lockstep as one
+        activation checkpoint (`_Remat`): the ranks meet here, the call of
+        every rank runs without autograd, and the backward runs them all
+        again.  A per-rank checkpoint could not: its saved-tensor hooks are
+        the rank thread's, and its recompute would reach the collectives
+        one rank at a time."""
+        if self._meet is None:
+            return _Remat.apply(lambda xs: [fn(self, xs[0])], x)[0]
+
+        def stage(mesh, fns, xs):
+            return list(_Remat.apply(lambda ys: run_lockstep(
+                mesh, lambda rk: fns[rk.rank](rk, ys[rk.rank])), *xs))
+        return self.meet((), tag, stage, fn, x)
 
     def all_gather(self, x, axes: Axes, *, axis: int):
         return self._collective("all_gather", x, axes, axis=axis)
 
     def psum(self, x, axes: Axes):
         return self._collective("psum", x, axes)
+
+    def pmax(self, x, axes: Axes):
+        return self._collective("pmax", x, axes)
 
     def psum_scatter(self, x, axes: Axes, scatter_dimension: int):
         return self._collective("psum_scatter", x, axes,
@@ -206,15 +265,16 @@ class Rank:
 
 def run_lockstep(mesh: GangMesh, body: Callable[[Rank], Any]) -> list:
     """``[body(Rank(mesh, r)) for r in ranks]``, the bodies in lockstep
-    (`sp.common.lockstep`) without autograd; on a meta mesh rank 0's
+    (`sp.common.lockstep`) under the caller's grad mode (a thread starts
+    with grad enabled, whatever its creator's); on a meta mesh rank 0's
     alone.  Every rank must reach the same collectives in the same order:
     one that meets another raises."""
+    grad = torch.is_grad_enabled()
     if _is_meta(mesh):
-        with torch.no_grad():
-            return [body(Rank(mesh, 0))]
+        return [body(Rank(mesh, 0))]
 
     def run(r, meet):
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             return body(Rank(mesh, r, meet))
 
     def collective(calls):
@@ -259,9 +319,10 @@ def prefill(cfg: ModelConfig, params: Sharded, batch: Sharded, cache: Sharded, *
         S += batch.local[0]["embeds"].shape[1]
     pl = tp.plan(cfg, mesh, batch=B, seq=S, long_context=long_context,
                  tok_spec=batch.specs["tokens"], cache_spec=cache.specs["k"])
-    outs = run_lockstep(mesh, lambda rk: tp.prefill_rank(
-        rk, cfg, pl, params.local[rk.rank], params.specs, batch.local[rk.rank],
-        cache.local[rk.rank], impl=impl))
+    with torch.no_grad():
+        outs = run_lockstep(mesh, lambda rk: tp.prefill_rank(
+            rk, cfg, pl, params.local[rk.rank], params.specs, batch.local[rk.rank],
+            cache.local[rk.rank], impl=impl))
     return (Sharded([o[0] for o in outs], _logits_spec(pl, params), mesh),
             Sharded([o[1] for o in outs], cache.specs, mesh))
 
@@ -275,9 +336,10 @@ def serve(cfg: ModelConfig, params: Sharded, cache: Sharded, token: Sharded, *,
     (B,) = _global_shape(token.local[0], token.specs, mesh)
     pl = tp.plan(cfg, mesh, batch=B, seq=1, long_context=long_context,
                  tok_spec=token.specs, cache_spec=cache.specs["k"])
-    outs = run_lockstep(mesh, lambda rk: tp.serve_rank(
-        rk, cfg, pl, params.local[rk.rank], params.specs, cache.local[rk.rank],
-        token.local[rk.rank], impl=impl, ring_buffer=ring_buffer))
+    with torch.no_grad():
+        outs = run_lockstep(mesh, lambda rk: tp.serve_rank(
+            rk, cfg, pl, params.local[rk.rank], params.specs, cache.local[rk.rank],
+            token.local[rk.rank], impl=impl, ring_buffer=ring_buffer))
     return (Sharded([o[0] for o in outs], _logits_spec(pl, params), mesh),
             Sharded([o[1] for o in outs], cache.specs, mesh))
 
@@ -286,3 +348,89 @@ def _logits_spec(pl: tp.Plan, params: Sharded) -> PartitionSpec:
     """(batch, vocab): the batch's axes, the lm head's column axes."""
     return P(pl.batch, tuple(a for a in as_axes(params.specs["lm_head"][1])
                              if a == "model"))
+
+
+def _train_plan(cfg: ModelConfig, params: Sharded, batch: Sharded) -> tp.Plan:
+    """The layouts of the train step: the reference's fsdp rules, not long
+    context (its ``build_train_step`` default)."""
+    B, S = _global_shape(batch.local[0]["tokens"], batch.specs["tokens"], params.mesh)
+    if cfg.family == "vlm":
+        S += batch.local[0]["embeds"].shape[1]
+    return tp.plan(cfg, params.mesh, batch=B, seq=S, long_context=False,
+                   tok_spec=batch.specs["tokens"])
+
+
+def loss_and_grads(cfg: ModelConfig, params: Sharded, batch: Sharded, *,
+                   impl: str = "torch", remat: bool = True):
+    """`steps.loss_and_grads` partitioned: (the loss, the gradients as a
+    `Sharded` cut like the params).  One autograd graph spans the ranks
+    (the collectives join their pieces, `sp.common.collective`), each
+    rank's pieces of the params are leaves of their own, and one backward
+    runs from this thread over one rank's copy of the global loss (a
+    backward over every copy would scale the gradients by the ranks).
+    Each gradient is then summed over the axes its leaf is not cut over: a
+    replicated leaf's gradient is partial on each rank (its heads, its
+    batch rows); over the axes a leaf is cut over, the backward of its
+    all-gather has reduce-scattered it already."""
+    _check_family(cfg)
+    mesh = _mesh_of(params, batch)
+    pl = _train_plan(cfg, params, batch)
+    leaves = [walk(lambda path, x, n: x.detach().requires_grad_(True), t)
+              for t in params.local]
+    with torch.enable_grad():
+        losses = run_lockstep(mesh, lambda rk: tp.loss_rank(
+            rk, cfg, pl, leaves[rk.rank], params.specs, batch.local[rk.rank],
+            impl=impl, remat=remat))
+        losses[0].backward()
+
+    def reduce(rk):
+        return walk(lambda path, x, n, spec: rk.psum(
+            torch.zeros_like(x) if x.grad is None else x.grad,
+            tuple(a for a in mesh.axis_names if a not in
+                  {b for e in spec for b in as_axes(e)})),
+            leaves[rk.rank], params.specs)
+    with torch.no_grad():
+        grads = run_lockstep(mesh, reduce)
+    return losses[0].detach(), Sharded(grads, params.specs, mesh)
+
+
+def _writers(params: Sharded, opt_state: Sharded):
+    """(per rank, whether it writes a tensor in place; per leaf, whether
+    ranks share a storage of it): ranks that share a device share the
+    storage of a leaf and its moments where the leaf is not cut over every
+    axis (`shard_tree`'s views), and each storage is written once, by the
+    first rank that holds it."""
+    per_rank = [optimizer.leaf_targets(p, o.moments)
+                for p, o in zip(params.local, opt_state.local)]
+    if _is_meta(params.mesh):
+        return [lambda x: True], [False] * len(per_rank[0])
+    seen, mine, shared = set(), [set() for _ in params.local], []
+    for i in range(len(per_rank[0])):
+        hit = False
+        for r, targets in enumerate(per_rank):
+            for x in targets[i]:
+                key = (x.device, x.data_ptr(), tuple(x.shape), x.stride())
+                hit |= key in seen
+                if key not in seen:
+                    seen.add(key)
+                    mine[r].add(id(x))
+        shared.append(hit)
+    return [lambda x, m=m: id(x) in m for m in mine], shared
+
+
+def train(cfg: ModelConfig, params: Sharded, opt_state: Sharded, batch: Sharded, *,
+          impl: str = "torch", remat: bool = True):
+    """`steps.build_train_step`'s step partitioned as XLA partitions the
+    reference's under its fsdp rules: `loss_and_grads`, then AdamW on each
+    rank's shards (`optimizer.adamw_update_sharded`: the global grad norm,
+    the factored moments' means over the axes their dims are cut over),
+    each storage written once.  Returns (params, opt_state, {"loss",
+    "grad_norm"}), the params the same pieces updated in place."""
+    mesh = _mesh_of(params, opt_state, batch)
+    loss, grads = loss_and_grads(cfg, params, batch, impl=impl, remat=remat)
+    own, shared = _writers(params, opt_state)
+    outs = run_lockstep(mesh, lambda rk: optimizer.adamw_update_sharded(
+        rk, params.local[rk.rank], grads.local[rk.rank], opt_state.local[rk.rank],
+        params.specs, own=own[rk.rank], shared=shared))
+    return (params, Sharded([o[1] for o in outs], opt_state.specs, mesh),
+            {"loss": loss, "grad_norm": outs[0][2]["grad_norm"]})

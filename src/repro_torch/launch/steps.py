@@ -14,11 +14,12 @@ sends the serve step's decode attention over a sharded cache sequence to
 the sequence-sharded decode (`layers._cached_decode_attention`).
 
 Given `launch.partition.Sharded` arguments (`partition.shard_tree` over
-the spec trees of `launch/shardings.py`), the prefill and serve steps of
-the dense and vlm families run partitioned over the arguments' mesh, as
-XLA partitions the reference's under its rules: each rank holds its
-shards and runs `models/tp.py`'s body in lockstep with the others.  Whole
-tensors take the path above.
+the spec trees of `launch/shardings.py`), the three steps of the dense
+and vlm families run partitioned over the arguments' mesh, as XLA
+partitions the reference's under its rules: each rank holds its shards and
+runs `models/tp.py`'s body in lockstep with the others; the train step
+under the fsdp rules (`partition.train`).  Whole tensors take the path
+above.
 
 `params_structs`, `opt_structs`, `batch_structs` and `cache_structs` are
 the reference's ``ShapeDtypeStruct`` helpers: the same trees on the "meta"
@@ -128,14 +129,20 @@ def build_train_step(cfg: ModelConfig, *, impl: str = "torch", remat: bool = Tru
                      mesh=None):
     """train_step(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}): `loss_and_grads` with remat, then one AdamW update in
-    place.  With `mesh`, the step runs under its fsdp rules, as the
-    reference's; here they steer nothing (a train step never decodes) and
-    the step takes whole tensors: the partitioned FSDP train step (sharded
-    gradients and AdamW moments, a vocab-parallel loss) is not ported yet,
-    so a host mesh over every visible card does not shard the training."""
+    place.  With `Sharded` arguments (params cut by
+    ``shardings.param_specs(fsdp=True)``, the optimizer state by
+    `opt_specs`, the batch by `batch_specs`) the FSDP step partitioned over
+    their mesh (`partition.train`: weights gathered per layer, gradients
+    reduce-scattered back to their shards, AdamW on the shards, the global
+    grad norm, a vocab-parallel loss); params and opt_state come back
+    `Sharded`.  With whole tensors and `mesh`, the step runs under the
+    mesh's fsdp rules, as the reference's; they steer nothing there (a
+    train step never decodes)."""
     rules = _rules(mesh, fsdp=True)
 
     def train_step(params, opt_state, batch: Dict[str, Any]):
+        if isinstance(params, partition.Sharded):
+            return partition.train(cfg, params, opt_state, batch, impl=impl, remat=remat)
         with use_rules(rules):
             loss, grads = loss_and_grads(cfg, params, batch, impl=impl, remat=remat)
             params, opt_state, info = adamw_update(params, grads, opt_state)

@@ -3,10 +3,13 @@
 default, as the reference) or, with ``--full``, the full config in its own
 dtype, on the card unless ``--device cpu``.  ``--layers N`` cuts the depth
 (of the reduced config, or of the full one at full width) and is printed.
-Each step is `steps.build_train_step` under the sharding rules of a host
-mesh (`launch/mesh.make_host_mesh`: every visible card, or the CPU), as the
-reference's launcher: the loss with remat over the plain PyTorch attention
-and SSD, its gradients, one AdamW update.
+Each step is `steps.build_train_step` over a host mesh
+(`launch/mesh.make_host_mesh`: every visible card, or the CPU), as the
+reference's launcher jits it over its mesh: the loss with remat over the
+plain PyTorch attention and SSD, its gradients, one AdamW update.  On a
+mesh of more than one rank the step is the partitioned FSDP step (dense
+and vlm): the params, the optimizer state and each batch are cut by
+``shardings.param_specs(fsdp=True)``, `opt_specs` and `batch_specs`.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mistral_7b --full
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b --device cpu --steps 5
@@ -24,8 +27,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import PORTED_ARCH_IDS, get_config, reduced_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.hardware import H100_SXM, resolve_device
+from repro_torch.launch import partition
+from repro_torch.launch import shardings as shd
 from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import init_params, param_count
@@ -68,11 +73,20 @@ def train(cfg: ModelConfig, params, *, steps: int, batch: int, seq: int, device,
           same_batch: bool = False, seed: int = 0, mesh=None,
           log=print) -> Dict[str, Any]:
     """`steps` train steps; a fresh batch each step (the reference's loop)
-    or, with `same_batch`, the first one repeated.  Returns the losses,
-    gradient norms and wall seconds of each step (to the device's end)."""
+    or, with `same_batch`, the first one repeated; on a `mesh` of more
+    than one rank partitioned (module doc), the params' pieces updated in
+    place.  Returns the losses, gradient norms and wall seconds of each
+    step (to the device's end), the params and the optimizer state (whole
+    tensors)."""
     opt = adamw_init(params)
     step_fn = st.build_train_step(cfg, remat=True, mesh=mesh)
     rng = np.random.default_rng(seed)
+    sharded = mesh is not None and mesh.n_ranks > 1
+    if sharded:
+        pspecs = shd.param_specs(cfg, params, mesh, fsdp=True)
+        params = partition.shard_tree(params, pspecs, mesh)
+        opt = partition.shard_tree(opt, shd.opt_specs(pspecs, opt), mesh)
+        bspecs = shd.batch_specs(cfg, ShapeConfig("train", seq, batch, "train"), mesh)
     data = make_batch(cfg, batch, seq, rng, device)
     losses: List[float] = []
     norms: List[float] = []
@@ -81,12 +95,15 @@ def train(cfg: ModelConfig, params, *, steps: int, batch: int, seq: int, device,
         if i and not same_batch:
             data = make_batch(cfg, batch, seq, rng, device)
         t0 = time.perf_counter()
-        params, opt, info = step_fn(params, opt, data)
+        params, opt, info = step_fn(
+            params, opt, partition.shard_tree(data, bspecs, mesh) if sharded else data)
         losses.append(float(info["loss"]))                 # waits for the card
         norms.append(float(info["grad_norm"]))
         secs.append(time.perf_counter() - t0)
         log(f"step {i:3d} loss={losses[-1]:.4f} gnorm={norms[-1]:.3f} "
             f"({secs[-1]:.3f} s)")
+    if sharded:
+        params, opt = partition.unshard_tree(params), partition.unshard_tree(opt)
     return {"losses": losses, "grad_norms": norms, "step_s": secs,
             "params": params, "opt": opt}
 

@@ -14,7 +14,8 @@ The layouts come from the reference's call sites through `resolve_spec` /
 * Q, K, V column-parallel over "heads" / "kv_heads" where the rules give
   heads; where the head count does not divide the axis, the reference's
   second option: the query's rows over "seq" (B1 at their q_offset) with
-  K and V whole;
+  K and V whole; where a rank's query heads read K/V heads they do not
+  pair evenly with, B1 gets each query head's K/V head (`_kv_for`);
 * ``wo`` and ``w_down`` row-parallel: their partial sums reduce-scattered
   onto the residual's sequence, or all-reduced where it is not sharded;
   ``w_gate`` / ``w_up`` over "ff";
@@ -29,7 +30,12 @@ The layouts come from the reference's call sites through `resolve_spec` /
   `model._write_prefix` writes (the ring roll past the cache's length);
   the serve step writes a token's K/V on the rank whose slice holds its
   position and decodes with `sp.decode.distributed_decode_local` over the
-  cache's sequence axes.
+  cache's sequence axes;
+* the train step's loss (`loss_rank`, under the fsdp rules) on the logits
+  as the reference constrains them, the sequence gathered and the
+  vocabulary over "model": each slice's max and sum of exponentials
+  merged across the vocab ranks, the labels' logits taken where their
+  slice lies.
 
 A dim that its axes do not divide stays whole, as the rules leave it.
 """
@@ -162,19 +168,24 @@ def _row(rk, h, h_cols: Axes, p, ps, w: str, seq: Axes):
     return _reduce_to(rk, L.linear(h, _weight(rk, p[w], ps[w])), rows, seq)
 
 
-def _kv_range(h0: int, nh: int, n_rep: int, kv0: int, nkv: int):
-    """The rank's K/V heads [lo, hi) (of its `nkv` from `kv0`) that its
-    query heads [h0, h0 + nh) read, as B1 pairs them (query head j with
-    key head j // (nh / (hi - lo)))."""
-    lo, hi = h0 // n_rep, (h0 + nh - 1) // n_rep + 1
-    if lo < kv0 or hi > kv0 + nkv:
+def _kv_for(k, v, h0: int, nh: int, n_rep: int, kv0: int):
+    """The K/V heads (b, n, S, hd) that B1 pairs with the rank's query heads
+    [h0, h0 + nh) (query head j with key head j // (nh / n)), from the
+    rank's K/V heads (b, nkv, S, hd) from `kv0` on: the slice of the heads
+    they read where those pair evenly with them, else each query head's own
+    K/V head repeated per query head (as `sp/inner._rep_kv` repeats where
+    the heads do not divide the axis), e.g. phi3_14b's 40 q / 10 KV heads
+    over 4 ranks, 10 query heads reading 3 K/V heads."""
+    reads = [(h0 + j) // n_rep - kv0 for j in range(nh)]
+    if reads[0] < 0 or reads[-1] >= k.shape[1]:
         raise ValueError(f"partitioned step: query heads [{h0}, {h0 + nh}) read "
-                         f"key heads [{lo}, {hi}), the rank holds [{kv0}, {kv0 + nkv})")
-    n = hi - lo
-    if nh % n or any((h0 + j) // n_rep - lo != j // (nh // n) for j in range(nh)):
-        raise NotImplementedError(f"partitioned step: query heads [{h0}, {h0 + nh}) "
-                                  f"do not pair evenly with key heads [{lo}, {hi})")
-    return lo - kv0, hi - kv0
+                         f"key heads [{reads[0] + kv0}, {reads[-1] + kv0 + 1}), the rank "
+                         f"holds [{kv0}, {kv0 + k.shape[1]})")
+    lo, n = reads[0], reads[-1] - reads[0] + 1
+    if nh % n == 0 and all(r - lo == j // (nh // n) for j, r in enumerate(reads)):
+        return k[:, lo:lo + n], v[:, lo:lo + n]
+    idx = torch.tensor(reads, device=k.device)
+    return k.index_select(1, idx), v.index_select(1, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -245,8 +256,8 @@ def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
     nkv = KV // rk.size(pl.kv_heads)
     k = L.rope(k.reshape(b, S, nkv, hd), positions, cfg.rope_theta)
     kh, vh = k.transpose(1, 2), v.reshape(b, S, nkv, hd).transpose(1, 2)
-    lo, hi = _kv_range(h0, nh, H // KV, rk.index(pl.kv_heads) * nkv, nkv)
-    o = ops.attention(q.transpose(1, 2), kh[:, lo:hi], vh[:, lo:hi], causal=True,
+    ka, va = _kv_for(kh, vh, h0, nh, H // KV, rk.index(pl.kv_heads) * nkv)
+    o = ops.attention(q.transpose(1, 2), ka, va, causal=True,
                       sliding_window=cfg.sliding_window, q_offset=q0, impl=impl)
     o = o.transpose(1, 2).reshape(b, sq, nh * hd)
     if pl.q_rows:
@@ -297,29 +308,98 @@ def _write_token(rk, ca: Axes, dst, new, pos) -> None:
 # ---------------------------------------------------------------------------
 # per-rank steps
 # ---------------------------------------------------------------------------
+def _embed_rows(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any]):
+    """(the rank's rows of the embedded prompt (b, S / |seq|, d) — vlm: the
+    patch embeddings first —, the tokens gathered over their sequence)."""
+    tokens = rk.all_gather(batch["tokens"], pl.tok_seq, axis=1)
+    e, va = _embed(rk, cfg, p, ps, tokens,
+                   batch["embeds"] if cfg.family == "vlm" else None)
+    return _reduce_to(rk, e, va, pl.seq), tokens
+
+
+def _layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, positions, *, impl: str):
+    """One dense layer (`model._dense_layer`) on the rank's residual rows:
+    (x, the layer's (K, V) heads of the rank)."""
+    eps = cfg.norm_eps
+    h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), p["ln1"], eps)
+    h, kv = _attention(rk, cfg, pl, p["attn"], ps["attn"], h, positions, impl=impl)
+    x = x + h
+    h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), p["ln2"], eps)
+    return x + _mlp(rk, p["mlp"], ps["mlp"], h, pl.seq), kv
+
+
 def prefill_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any],
                  cache: Dict[str, Any], *, impl: str = "auto"):
     """One rank's `model.prefill`: (its (b, V / |vocab|) last-token
     logits, its cache with the K/V slices written in place and "len" set)."""
-    eps = cfg.norm_eps
-    tokens = rk.all_gather(batch["tokens"], pl.tok_seq, axis=1)
-    e, va = _embed(rk, cfg, p, ps, tokens,
-                   batch["embeds"] if cfg.family == "vlm" else None)
-    x = _reduce_to(rk, e, va, pl.seq)
-    b, S = e.shape[:2]
+    x, _ = _embed_rows(rk, cfg, pl, p, ps, batch)
+    b, S = x.shape[0], x.shape[1] * rk.size(pl.seq)
     positions = torch.arange(S, device=x.device)
     for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
-        h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), pl_["ln1"], eps)
-        h, (k, v) = _attention(rk, cfg, pl, pl_["attn"], ps_["attn"], h, positions,
-                               impl=impl)
-        x = x + h
-        h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), pl_["ln2"], eps)
-        x = x + _mlp(rk, pl_["mlp"], ps_["mlp"], h, pl.seq)
+        x, (k, v) = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl)
         _write_prefix(rk, pl, cache["k"][li], k)
         _write_prefix(rk, pl, cache["v"][li], v)
     last = rk.all_gather(x[:, -1:], pl.seq, axis=1)[:, -1]
     cache = dict(cache, len=torch.full((b,), S, dtype=torch.int32, device=x.device))
     return _lm_head(rk, cfg, p, ps, last), cache
+
+
+def _nll(rk, va: Axes, logits, labels):
+    """Summed f32 negative log-likelihood of the labels >= 0 of the rank's
+    rows (`model._chunk_nll`), its logits the vocabulary slice of the
+    ranks of `va`: the slices' max (held constant, as ``log_softmax``
+    holds it) and sum of exponentials merged by pmax and psum, the label's
+    logit taken on the rank whose slice holds it and psummed."""
+    lg = logits.float()
+    n = lg.shape[-1]
+    m = rk.pmax(lg.amax(-1, keepdim=True).detach(), va)
+    lse = m[..., 0] + torch.log(rk.psum(torch.exp(lg - m).sum(-1), va))
+    local = labels.long() - rk.index(va) * n
+    hit = (labels >= 0) & (local >= 0) & (local < n)
+    picked = torch.where(hit, torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0],
+                         torch.zeros((), dtype=lg.dtype, device=lg.device))
+    return ((lse - rk.psum(picked, va)) * (labels >= 0)).sum()
+
+
+def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
+              impl: str = "torch", remat: bool = True, loss_chunk: int = 512):
+    """One rank's `model.loss_fn`: the global mean next-token cross entropy
+    (every rank a copy).  The layers as `prefill_rank`'s without the cache
+    writes, each under `rk.remat` with `remat`; the logits as the reference
+    constrains them, ("batch", None, "vocab"): the sequence gathered (vlm:
+    the patch prefix cut off) and the vocabulary over the lm head's axes,
+    the padded vocabulary masked on each slice; the f32 loss per chunk of
+    the largest divisor of S at or below `loss_chunk`, each under
+    `rk.remat` (`_nll`); the sum and the count of valid labels psummed over
+    the batch axes before the division.  A rank's labels are gathered over
+    their sequence axes (one sequence: every rank holds every row)."""
+    x, tokens = _embed_rows(rk, cfg, pl, p, ps, batch)
+    S = x.shape[1] * rk.size(pl.seq)
+    positions = torch.arange(S, device=x.device)
+    for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
+        def layer(rk, x, pl_=pl_, ps_=ps_):
+            return _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl)[0]
+        x = rk.remat(f"layer {li}", layer, x) if remat else layer(rk, x)
+    x = rk.all_gather(x, pl.seq, axis=1)[:, S - tokens.shape[1]:]
+    logits = _lm_head(rk, cfg, p, ps, x)
+    labels = batch.get("labels")
+    labels = (F.pad(tokens[:, 1:], (0, 1), value=-1) if labels is None
+              else rk.all_gather(labels, pl.tok_seq, axis=1))
+    va = _model(ps["lm_head"][1])
+    St = logits.shape[1]
+    ck = min(loss_chunk, St)
+    while St % ck:
+        ck -= 1
+    sums = []
+    for i in range(0, St, ck):
+        def nll(rk, lg, lb=labels[:, i:i + ck]):
+            return _nll(rk, va, lg, lb)
+        lg = logits[:, i:i + ck]
+        sums.append(rk.remat(f"loss chunk {i}", nll, lg)
+                    if torch.is_grad_enabled() and lg.requires_grad else nll(rk, lg))
+    total = rk.psum(torch.stack(sums).sum(), pl.batch)
+    count = rk.psum((labels >= 0).sum(), pl.batch)
+    return total / count.clamp_min(1)
 
 
 def serve_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, cache: Dict[str, Any],

@@ -16,6 +16,13 @@ rank of a group of two or more, the bytes of that rank's result to the
 rank's count under the reference's HLO names (`KINDS`), as
 ``collective_bytes_from_hlo`` counts one device's program.
 
+`collective` runs one of them as a single autograd node over every rank's
+tensor (the graph of a partitioned train step spans the ranks): its
+backward runs the dual collective over the ranks' gradients, all-gather
+and reduce-scatter each other's, psum its own, an all-to-all the reverse
+one, so the backward's bytes are counted as the reference's HLO holds
+them, under the dual's kind.
+
 `lockstep` runs one body per rank, each in a thread of its own, meeting at
 the collectives: the runner of the gang's layer quanta and of the
 partitioned steps (`launch/partition.py`).
@@ -218,6 +225,49 @@ class GangMesh:
         0, joined along `axis` on rank 0's device."""
         g = next(g for g in self.groups(axes) if 0 in g)
         return torch.cat([xs[r].to(self.devices[0]) for r in g], axis)
+
+
+def _dual(name: str, kw: dict):
+    """(the collective whose result is the gradient of `name`'s inputs,
+    its keywords), given the gradients of `name`'s results."""
+    if name == "all_gather":
+        return "psum_scatter", {"scatter_dimension": kw["axis"]}
+    if name == "psum_scatter":
+        return "all_gather", {"axis": kw["scatter_dimension"]}
+    if name == "all_to_all":
+        return "all_to_all", {"split_axis": kw["concat_axis"],
+                              "concat_axis": kw["split_axis"]}
+    if name == "psum":
+        return "psum", {}
+    raise NotImplementedError(f"collective: {name} has no gradient here")
+
+
+class _Collective(torch.autograd.Function):
+    """`run` over every rank's tensor as one node; its backward `back` over
+    the ranks' gradients (a result no rank reads gets zeros)."""
+
+    @staticmethod
+    def forward(ctx, run, back, *xs):
+        ctx.back = back
+        return tuple(run(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.back(list(grads)))
+
+
+def collective(mesh: GangMesh, name: str, xs: List[torch.Tensor], axes: Axes,
+               **kw) -> List[torch.Tensor]:
+    """``mesh.<name>(xs, axes, **kw)``; under autograd, where a rank's
+    tensor requires grad, one node over every rank's tensor whose backward
+    runs the dual collective (`_dual`) on `mesh`, counted as any other."""
+    run = getattr(mesh, name)
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return run(xs, axes, **kw)
+    dual, dual_kw = _dual(name, kw)
+    back = getattr(mesh, dual)
+    return list(_Collective.apply(lambda ys: run(ys, axes, **kw),
+                                  lambda gs: back(gs, axes, **dual_kw), *xs))
 
 
 def lockstep(n: int, body: Callable, collective: Callable) -> list:

@@ -14,14 +14,25 @@ would then factor across layers.
 
 Parameters and moments are updated in place under ``torch.no_grad()``, as
 the port's caches are; the step count and every scalar stay on the device.
+
+`adamw_update_sharded` is the same step on one rank's shards of a
+partitioned train step (`launch/partition.train`), as XLA partitions the
+reference's under its fsdp rules: each leaf's sum of squares psummed over
+the axes the leaf is cut over (a replicated leaf counts once), the
+factored moments' means over a dim cut over some axes the local mean
+pmeaned over them.  Factoring follows the moments it is given: they were
+made by `adamw_init` on the whole leaves and cut by
+`launch/shardings.opt_specs`, so it was decided on the global stacked
+shape, never on a shard.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.models.model import tree_like
+from repro_torch.sp.common import as_axes
 
 FACTOR_THRESHOLD = 100_000_000     # elements, of the reference's stacked leaf
 
@@ -84,6 +95,17 @@ def adamw_init(params) -> AdamWState:
                       moments=moments)
 
 
+def _schedule(step: torch.Tensor, gnorm: torch.Tensor, b1: float, b2: float,
+              grad_clip: float):
+    """(the clip scale, the new step, the f32 bias corrections)."""
+    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = step + 1
+    stepf = step.float()
+    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=stepf.device) ** stepf
+    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=stepf.device) ** stepf
+    return scale, step, bc1, bc2
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, *, lr: float = 3e-4,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -95,11 +117,7 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float = 3e-4,
     leaves = _zip(params, grads, state.moments)
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                            for _, _, g, _ in leaves))
-    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
-    stepf = step.float()
-    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=stepf.device) ** stepf
-    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=stepf.device) ** stepf
+    scale, step, bc1, bc2 = _schedule(state.step, gnorm, b1, b2, grad_clip)
     for p, _, g, mom in leaves:
         g = g.float() * scale
         if "v" in mom:
@@ -122,4 +140,67 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float = 3e-4,
             mom["vc"].copy_(vc)
         delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
+    return params, AdamWState(step=step, moments=state.moments), {"grad_norm": gnorm}
+
+
+def leaf_targets(params, moments) -> List[Tuple[torch.Tensor, ...]]:
+    """Per leaf (in `_zip` order), the tensors its update writes: the
+    parameter and its moments."""
+    return [(p, *mom.values()) for p, _, mom in _zip(params, moments)]
+
+
+@torch.no_grad()
+def adamw_update_sharded(rk, params, grads, state: AdamWState, specs, *,
+                         own: Callable[[torch.Tensor], bool], shared: List[bool],
+                         lr: float = 3e-4,
+                         b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                         weight_decay: float = 0.1,
+                         grad_clip: float = 1.0) -> Tuple[Any, AdamWState, Dict]:
+    """`adamw_update` on rank `rk`'s shards (`partition.Rank`), the leaves
+    cut by `specs` (the params' spec tree; their moments by
+    `shardings.opt_specs`) and `grads` already summed over each leaf's
+    replicated axes.  Every rank computes each update; a tensor is written
+    only where `own(tensor)`, and where ranks share a leaf's storage
+    (`shared[i]`) only after every rank has read it."""
+    leaves = _zip(params, grads, state.moments, specs)
+    names = rk.mesh.axis_names
+
+    def cut(spec, dim):
+        """The mesh axes of `dim` under `spec`, in the mesh's order."""
+        axes = as_axes(spec[dim]) if dim < len(spec) else ()
+        return tuple(a for a in names if a in axes)
+
+    def pmean(x, axes):
+        return rk.psum(x, axes) / rk.size(axes)
+    squares: Dict[Tuple[str, ...], list] = {}
+    for _, _, g, _, spec in leaves:
+        axes = tuple(a for a in names if any(a in as_axes(e) for e in spec))
+        squares.setdefault(axes, []).append(torch.sum(torch.square(g.float())))
+    gnorm = torch.sqrt(sum(rk.psum(torch.stack(sq), axes).sum()
+                           for axes, sq in squares.items()))
+    scale, step, bc1, bc2 = _schedule(state.step, gnorm, b1, b2, grad_clip)
+    for i, (p, _, g, mom, spec) in enumerate(leaves):
+        g = g.float() * scale
+        if "v" in mom:
+            new = {"m": b1 * mom["m"] + (1 - b1) * g,
+                   "v": b2 * mom["v"] + (1 - b2) * g * g}
+            vhat = new["v"] / bc2
+            mhat = new["m"] / bc1
+        else:
+            rows, cols = cut(spec, p.dim() - 1), cut(spec, p.dim() - 2)
+            m2f = b1 * mom["m"].float() + (1 - b1) * g
+            g2 = g * g + 1e-30
+            vr = b2 * mom["vr"] + (1 - b2) * pmean(g2.mean(dim=-1), rows)
+            vc = b2 * mom["vc"] + (1 - b2) * pmean(g2.mean(dim=-2), cols)
+            denom = torch.clamp(pmean(vr.mean(dim=-1, keepdim=True), cols), min=1e-30)
+            vhat = (vr[..., :, None] * vc[..., None, :] / denom[..., None]) / bc2
+            mhat = m2f / bc1
+            new = {"m": m2f, "vr": vr, "vc": vc}
+        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
+        new_p = p.float() - lr * delta
+        if shared[i]:
+            rk.barrier()
+        for t, v in ((p, new_p), *((mom[k], new[k]) for k in mom)):
+            if own(t):
+                t.copy_(v)
     return params, AdamWState(step=step, moments=state.moments), {"grad_norm": gnorm}

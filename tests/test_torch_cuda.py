@@ -530,3 +530,62 @@ def test_partitioned_steps_on_card_match_cpu(cuda, shape):
     assert counts[1] == counts[0]
     assert flash_attention.launches == before[0] + cfg.num_layers * 4
     assert flash_decode.launches == before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_train_step_on_card_matches_cpu(cuda, shape):
+    """A reduced f32 dense model (8 q / 2 KV heads), two partitioned FSDP
+    train steps on 4 x 32 tokens over four ranks sharing the card against
+    the same four ranks on the CPU: loss and grad norm to 1e-5, the params
+    to 1e-4 but for AdamW's ±lr sign flips, the same collective bytes, no
+    kernel launched (the step differentiates the plain attention)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.partition import shard_tree, unshard_tree
+    from repro_torch.models import model as mdl
+    from repro_torch.sp.common import GangMesh
+    from repro_torch.training import adamw_init
+    cfg = dataclasses.replace(reduced_config(get_config("llama31_70b"), n_heads=8, n_kv=2),
+                              dtype="float32")
+    params = mdl.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(7)
+    batches = []
+    for _ in range(2):
+        tok = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
+        batches.append({"tokens": tok,
+                        "labels": torch.nn.functional.pad(tok[:, 1:], (0, 1), value=-1)})
+    shape_cfg = ShapeConfig("t", 32, 4, "train")
+    runs = []
+    before = flash_attention.launches, flash_decode.launches
+    for dev in ("cpu", cuda):
+        mesh = GangMesh([dev] * 4, shape, ("data", "model"))
+        # a copy on each device: the step updates the params in place
+        p = mdl.tree_like(params, [x.to(dev, copy=True) for x in mdl.param_leaves(params)])
+        opt = adamw_init(p)
+        pspecs = shd.param_specs(cfg, p, mesh, fsdp=True)
+        sp = shard_tree(p, pspecs, mesh)
+        so = shard_tree(opt, shd.opt_specs(pspecs, opt), mesh)
+        infos, counts = [], []
+        for b in batches:
+            mesh.reset_bytes()
+            sp, so, info = steps.build_train_step(cfg)(
+                sp, so, shard_tree(_to(b, dev), shd.batch_specs(cfg, shape_cfg, mesh), mesh))
+            infos.append((float(info["loss"]), float(info["grad_norm"])))
+            counts.append(mesh.collective_bytes)
+        runs.append((infos, unshard_tree(sp), counts))
+    (want, want_p, want_c), (got, got_p, got_c) = runs
+    for gi, wi in zip(got, want):
+        for a, b in zip(gi, wi):
+            assert abs(a - b) <= 1e-5 * abs(b), (got, want)
+    for a, b in zip(mdl.param_leaves(got_p), mdl.param_leaves(want_p)):
+        a, b = a.cpu(), b.cpu()
+        off = ~torch.isclose(a, b, rtol=1e-4, atol=1e-4)
+        assert int(off.sum()) <= max(1, b.numel() // 10_000)
+        assert float((a - b).abs().max()) <= 2 * 3e-4 * 2
+    assert got_c == want_c
+    assert (flash_attention.launches, flash_decode.launches) == before

@@ -20,7 +20,7 @@ full width: shapes only, on the meta device.
   for every family at reduced width;
 * the matrix: the skip set is the reference's `supports_shape` (66 run,
   14 skipped), one shape per arch runs OK on both production meshes, the
-  dense and vlm archs with their collective bytes (the
+  dense and vlm archs with their collective bytes, train's too (the
   full matrix takes more than a minute on one core: it runs in
   `chip_smoke.py`'s dryrun phase and `python -m
   repro_torch.launch.dryrun_all`), and the CLIs write their records.
@@ -283,8 +283,19 @@ def test_matrix_skip_set_matches_reference():
     assert (n_run, n_skip) == (66, 14)
 
 
+#: a train combo cut to size for the test's time (the matrix runs train_4k)
+TRAIN_SMALL = ShapeConfig("train_256", 256, 256, "train")
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_matrix_decode_combo_runs_on_both_meshes(arch):
+    """The decode_32k record on both production meshes, and a train
+    record: the dense and vlm families' collective bytes by kind (counted
+    by the partitioned steps: tests/test_torch_partition.py and
+    tests/test_torch_partition_train.py), the others' null with a reason."""
+    kinds = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute", "total"}
+    partitioned = get_config(arch).family in ("dense", "vlm")
     for mp, n in ((False, 256), (True, 512)):
         rec = dryrun.run_combo(arch, "decode_32k", multi_pod=mp)
         assert rec["ok"] and rec["n_devices"] == n
@@ -292,14 +303,19 @@ def test_matrix_decode_combo_runs_on_both_meshes(arch):
         mem = rec["memory"]
         assert mem["fits"] == (mem["per_device_total"] <= 80e9)
         assert mem["temp_size_in_bytes"] > 0 and "estimate" in mem["temp_scope"]
-        if get_config(arch).family in ("dense", "vlm"):
-            # counted by the partitioned serve step (tests/test_torch_partition.py)
-            assert set(rec["collectives"]) == {"all-gather", "all-reduce", "reduce-scatter",
-                                               "all-to-all", "collective-permute", "total"}
-            assert rec["collectives"]["total"] == sum(
-                v for k, v in rec["collectives"].items() if k != "total") > 0
-        else:
-            assert rec["collectives"] is None and rec["collectives_reason"]
+        train = dryrun.run_combo(arch, TRAIN_SMALL, multi_pod=mp,
+                                 layers=2 if partitioned else None)
+        for r in (rec, train):
+            if partitioned:
+                assert set(r["collectives"]) == kinds
+                assert r["collectives"]["total"] == sum(
+                    v for k, v in r["collectives"].items() if k != "total") > 0
+            else:
+                assert r["collectives"] is None and r["collectives_reason"]
+        if partitioned:
+            # FSDP: the weights gathered over the batch axes, their gradients
+            # reduce-scattered back
+            assert train["collectives"]["reduce-scatter"] > 0
         assert rec["cost"]["flops"] > 0
 
 

@@ -5,8 +5,11 @@ reduced f32 configs, the reference's weights bridged.
 * Meshes ["cpu"] x 4 shaped (1, 4), (2, 2), (4, 1) and ["cpu"] x 8 shaped
   (2, 4), (1, 8); configs: a llama-like dense model (8 q / 2 KV heads), a
   qwen2-like one with QKV bias and 6 heads (the rules' sequence fallback
-  wherever 6 does not divide "model"), a vlm, and a sliding-window model
-  whose serve step decodes into a ring.
+  wherever 6 does not divide "model"), a vlm, a sliding-window model
+  whose serve step decodes into a ring, and a phi3-like one (phi3_14b's
+  40 q / 10 KV heads) on (1, 4) and (1, 8), where the 10 KV heads stay
+  whole and a rank's query heads read K/V heads they do not pair evenly
+  with (B1 gets them repeated per query head).
 * A prefill and 4 greedy serve steps from `Sharded` arguments against the
   reference's `build_prefill_step` / `build_serve_step` without a mesh
   (logits 1e-4, caches 1e-5, the same greedy tokens) and against the
@@ -20,7 +23,8 @@ reduced f32 configs, the reference's weights bridged.
 * The collective bytes the mesh counts: a closed form per layer on (2, 2)
   and (1, 4), and the dry run's count on meta ranks equal to the CPU
   ranks' for the same combo; the dry run's dense and vlm records carry
-  them, the train and other families' records a reason.
+  them (train too: tests/test_torch_partition_train.py), the other
+  families' records a reason.
 
 The partitioned steps on the card against the CPU ranks' are in
 tests/test_torch_cuda.py, which imports no JAX.
@@ -78,6 +82,7 @@ CONFIGS = {
     "qwen2": ("qwen2_7b", dict(layers=2, d_model=192, n_heads=6, n_kv=2), 40),
     "vlm": ("internvl2_76b", dict(layers=2), 56),
     "swa": ("llama3_8b", dict(layers=2), 64),
+    "phi3": ("phi3_14b", dict(layers=2, d_model=320, n_heads=40, n_kv=10), 40),
 }
 MESHES = [(1, 4), (2, 2), (4, 1), (2, 4), (1, 8)]
 
@@ -210,7 +215,8 @@ class _Calls:
         monkeypatch.setattr(module, name, counted)
 
 
-CASES = [(name, shape) for name in ("dense", "qwen2", "vlm") for shape in MESHES]
+CASES = ([(name, shape) for name in ("dense", "qwen2", "vlm") for shape in MESHES]
+         + [("phi3", (1, 4)), ("phi3", (1, 8))])
 
 
 def _ids(case):
@@ -458,14 +464,15 @@ def test_meta_rank_count_equals_cpu_ranks(name, shape, kind, models):
 
 def test_dry_run_records_carry_collective_bytes():
     for arch, shape in (("llama3_8b", "prefill_32k"), ("qwen2_7b", "prefill_32k"),
-                        ("internvl2_76b", "decode_32k"), ("llama3_8b", "long_500k")):
+                        ("internvl2_76b", "decode_32k"), ("llama3_8b", "long_500k"),
+                        ("llama3_8b", "train_4k")):
         rec = dryrun.run_combo(arch, shape)
         assert rec["ok"] and set(rec["collectives"]) == set(KINDS) | {"total"}
         assert rec["collectives"]["total"] > 0 and "collectives_reason" not in rec
     # the 28 heads of qwen2 on 16 model ranks take the sequence fallback: an
     # all-to-all moves q's rows (and wo's inputs back)
     assert dryrun.run_combo("qwen2_7b", "prefill_32k")["collectives"]["all-to-all"] > 0
-    for arch, shape in (("llama3_8b", "train_4k"), ("olmoe_1b_7b", "decode_32k"),
+    for arch, shape in (("olmoe_1b_7b", "train_4k"), ("olmoe_1b_7b", "decode_32k"),
                         ("mamba2_130m", "prefill_32k")):
         rec = dryrun.run_combo(arch, shape)
         assert rec["collectives"] is None
