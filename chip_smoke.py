@@ -118,8 +118,10 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
 19. dryrun   — the dry run's meta account (``launch/dryrun.py``): the
                80-combo matrix through ``dryrun_all.run_matrix`` (66 OK,
                14 SKIP, 0 FAIL; how many fit 80 GB per device on each
-               production mesh); the account of the runs the ``train``,
-               ``vlm`` and ``ring`` phases measured, on a one-card host
+               production mesh; host work on the meta device, run in a
+               process of its own from the start of the script); the
+               account of the runs the ``train``, ``vlm`` and ``ring``
+               phases measured, on a one-card host
                mesh, within ACCOUNT_TOL of their peak memory (the train
                account without its optimizer moments must fall outside,
                internvl2_76b at all 80 layers must not fit); and the
@@ -166,18 +168,47 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                operations, the card's peak, each rank's parameter, gradient
                and moment GB; in f32 at PT_F32_LAYERS layers, two steps of
                each mesh against two whole-tensor steps: loss and grad norm
-               to TRAIN_TOL, the params after each step by `_params_close`.
+               to TRAIN_TOL, the params after each step by `_params_close`;
+22. partition_moe — the moe family's partitioned steps, its experts over
+               "model" (``models/tp._moe``), on [card] x 4 from shards of one
+               set of random bf16 weights: olmoe_1b_7b at full width and
+               depth (64 experts top-8) on (1, 4) and (2, 2), a prefill of
+               4 x 2048 into a cache of 2080 and 32 serve steps, held as
+               ``partition`` holds its runs against the unpartitioned steps
+               (B1, B2) routed as the partitioned run was (each token's
+               top-k experts, slots and keeps replayed, the gates from the
+               unpartitioned step's own logits: one more rounding of the
+               routing input reorders near ties, and a token routed
+               otherwise moves by O(gate)); the share of routed (token, k)
+               assignments per layer whose expert or keep differs from the
+               unpartitioned run's own routing held to ROUTING_FLIP_TOL,
+               the readings against that run reported; an expert sum
+               without the last expert rank's partial reading above
+               PARTITION_REL_TOL; f32 at PM_F32_LAYERS within
+               PARTITION_F32_TOL with every greedy token;
+               llama4_maverick_400b_a17b at full width and PM_LLAMA4_LAYERS
+               of its 48 layers (the shared expert, top-1, 32 experts and
+               10 q / 2 KV heads per rank) in bf16 on (1, 4), its expert
+               fault on a rank its compared tokens reach; and olmoe's FSDP
+               train step at PM_TRAIN_LAYERS of 16 layers as
+               ``partition_train`` holds mistral_7b's (the loss with 0.01 x
+               the load-balance loss, the router's gradient among the
+               leaves, the whole-tensor gradients and f32 steps routed as
+               the partitioned ones were), over (1, 4), (2, 2) and (4, 1),
+               f32 at PM_TRAIN_F32_LAYERS.
 
 Then one JSON line with every kernel's numbers (launches summed over the
 serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring, gang,
-dryrun and partition phases; the train phases launch none)
+dryrun, partition and partition_moe phases; the train phases launch none)
 and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import multiprocessing
 import json
 import re
 import statistics
@@ -248,6 +279,11 @@ PARTITION_MESHES = ((1, 4), (2, 2))
 #: bf16 (partial sums rounded to bf16 before their reduction, the gang's
 #: and the sharded decode's limit) and f32 (where every greedy token agrees)
 PARTITION_REL_TOL, PARTITION_F32_TOL = 5e-2, 1e-4
+#: partition_moe: per layer, the most routed (token, k) assignments, as a
+#: share, whose (expert, keep) may differ from the unpartitioned step's: in
+#: bf16 one more rounding of the routing input reorders near ties (olmoe at
+#: full width read 2-4 % per layer on the card), a wrong routing reads ~1
+ROUTING_FLIP_TOL = 0.1
 #: partition: teacher-forced serve steps on a mesh whose all-reduce drops
 #: the last rank's partial (the first mesh, bf16), each above the limit
 PARTITION_FAULT_STEPS = 2
@@ -262,6 +298,15 @@ PT_BATCH, PT_SEQ = 4, 2048
 PT_MESHES = ((1, 4), (2, 2), (4, 1))
 #: partition_train: bf16 loss against the whole-tensor step's, relative
 PT_LOSS_TOL = 1e-2
+#: partition_moe: olmoe_1b_7b's serving run at full depth on PM_MESHES (f32
+#: at PM_F32_LAYERS), llama4_maverick_400b_a17b's at PM_LLAMA4_LAYERS of 48
+#: (~37 GB in bf16) on (1, 4), olmoe's train step at PM_TRAIN_LAYERS of 16
+#: (f32 at PM_TRAIN_F32_LAYERS) on PT_MESHES; the PARTITION_* shapes.  The
+#: train step is cut to 4 layers for the script's time: at 8 it took 276 s
+#: of the phase's 451 s on the card (H100 80GB HBM3, 700 W)
+PM_MESHES = ((1, 4), (2, 2))
+PM_F32_LAYERS, PM_LLAMA4_LAYERS = 4, 1
+PM_TRAIN_LAYERS, PM_TRAIN_F32_LAYERS = 4, 2
 #: peak GB measured by the train, vlm and ring phases, read by dryrun
 PEAK_GB = {}
 HBM_BPS = 3.35e12               # H100 SXM data sheet
@@ -468,7 +513,9 @@ def phase_kernels(torch, dev):
     # the diagonal and the hop that sees every key; the partitioned prefill's
     # per-rank shapes: llama31_70b on 4 model ranks (16 q / 2 KV heads) and
     # qwen2_7b's last of 8 ranks in the sequence fallback (256 query rows at
-    # q_offset 1792 against all 2048 keys, 28 q / 4 KV heads).
+    # q_offset 1792 against all 2048 keys, 28 q / 4 KV heads); the
+    # partitioned moe prefill's on 4 model ranks: olmoe_1b_7b (MHA 4) and
+    # llama4_maverick_400b_a17b (10 q / 2 KV heads).
     # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
@@ -493,7 +540,11 @@ def phase_kernels(torch, dev):
              PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True),
             ("fa_partition_rows8_qwen2_256_at_1792", PARTITION_BATCH, 28, 4, 128,
              PARTITION_PROMPT // 8, PARTITION_PROMPT, PARTITION_PROMPT * 7 // 8, 0,
-             False, True)):
+             False, True),
+            ("fa_partition_moe_olmoe_mha4_causal_2048", PARTITION_BATCH, 4, 4, 128,
+             PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True),
+            ("fa_partition_moe_llama4_10q2kv_causal_2048", PARTITION_BATCH, 10, 2, 128,
+             PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kl = [sk, sk - 77] if ragged else [sk] * B
@@ -1902,24 +1953,33 @@ def _sharded_decode(torch, dev, arch, shape, prompt, model_ranks, dtype):
     return res, launches
 
 
-def phase_dryrun(torch, dev, smi):
-    """The dry run: the matrix, the account against the card's measured
-    peaks, and the sequence-sharded decode at full width (module doc, 19)."""
+def _matrix_job(out_dir):
+    """The dry run's matrix (`dryrun_all.run_matrix`): (its records, its
+    seconds).  Host work on the meta device alone, so `main` runs it in a
+    process of its own beside the card's phases."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun_all
+    t0 = time.perf_counter()
+    recs = dryrun_all.run_matrix(out_dir=out_dir, log=lambda line: None)
+    return recs, time.perf_counter() - t0
+
+
+def phase_dryrun(torch, dev, smi, matrix_job):
+    """The dry run: the matrix (`matrix_job`, an async result of
+    `_matrix_job`), the account against the card's measured peaks, and the
+    sequence-sharded decode at full width (module doc, 19)."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, dryrun_all
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    recs = dryrun_all.run_matrix(out_dir=ROOT / "build" / "dryrun_torch",
-                                 log=lambda line: None)
-    matrix_s = time.perf_counter() - t0
+    recs, matrix_s = matrix_job.get()
     n = dryrun_all.summary(recs)
     if (n["ok"], n["skipped"], n["failed"]) != (66, 14, 0):
         raise AssertionError(f"dryrun: the matrix reads {n}, not 66 ok / 14 skipped")
     ok = [r for r in recs if r.get("ok")]
     largest = max(ok, key=lambda r: r["memory"]["per_device_total"])
-    matrix = dict(n, seconds=matrix_s,
+    matrix = dict(n, seconds=matrix_s, waited_s=time.perf_counter() - t_phase,
                   fit_80gb={m: sum(r["memory"]["fits"] for r in ok if r["mesh"] == m)
                             for m in ("pod16x16", "pod2x16x16")},
                   ok_per_mesh={m: sum(r["mesh"] == m for r in ok)
@@ -1962,6 +2022,110 @@ def _dropping_last_partial(mesh, op="psum_scatter"):
     return Dropping(mesh.devices, tuple(mesh.shape.values()), mesh.axis_names)
 
 
+@contextlib.contextmanager
+def _routes():
+    """Within: every moe routing (`moe.route_logits`) recorded, per rank of
+    a partitioned step (None: a whole-tensor step), in call order."""
+    import threading
+
+    from repro_torch.models import moe, tp
+    seen, local = {}, threading.local()
+    route, block = moe.route_logits, tp._moe
+
+    def recording(*a, **k):
+        r = route(*a, **k)
+        seen.setdefault(getattr(local, "rank", None), []).append(
+            moe.Routing(*(t.detach() for t in r[:-1]), r.capacity))
+        return r
+
+    def ranked(rk, *a, **k):
+        local.rank = rk.rank
+        return block(rk, *a, **k)
+    moe.route_logits, tp._moe = recording, ranked
+    try:
+        yield seen
+    finally:
+        moe.route_logits, tp._moe = route, block
+
+
+def _joined_routes(ranks, mesh, pl):
+    """Per call, the routing of every group from `_routes`' record of a
+    partitioned step: the ranks at model index 0, each its own groups in
+    the order of the batch axes (`tp.Plan.moe_batch`), or rank 0's where
+    every rank routed every group."""
+    import torch
+
+    from repro_torch.models.moe import Routing
+    firsts = sorted((mesh.axis_index(r, pl.batch), r) for r in ranks
+                    if not mesh.axis_index(r, "model"))
+    if pl.moe_batch != pl.batch:
+        firsts = firsts[:1]
+    return [Routing(*(torch.cat([getattr(ranks[r][i], f) for _, r in firsts])
+                      for f in Routing._fields[:-1]), ranks[firsts[0][1]][i].capacity)
+            for i in range(len(ranks[firsts[0][1]]))]
+
+
+@contextlib.contextmanager
+def _replaying(routes):
+    """Within: `moe.route_logits` takes the choices of `routes` in turn
+    (each token's top-k experts, their slots and keeps) and computes the
+    gates from its own logits as it does: a whole-tensor step routed as a
+    partitioned one was."""
+    from repro_torch.models import moe
+    route, it = moe.route_logits, iter(routes)
+
+    def replay(cfg, logits, **kw):
+        r = next(it)
+        if r.probs.shape != logits.shape:
+            raise AssertionError(f"replayed routing {tuple(r.probs.shape)} for logits "
+                                 f"{tuple(logits.shape)}")
+        probs = logits.softmax(-1)
+        gate = probs.gather(-1, r.expert)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        return moe.Routing(probs, r.expert, gate * r.keep, r.slot, r.keep, r.capacity)
+    moe.route_logits = replay
+    try:
+        yield
+    finally:
+        moe.route_logits = route
+
+
+def _routing_flips(whole, part, n_experts):
+    """(per call, the share of routed (token, k) assignments of `part` whose
+    (expert, keep) `whole` did not give that token, the order of its k
+    choices aside; the tokens, flattened over the groups, with one in any
+    call).  `whole`, `part`: routings of every group, one per call."""
+    import torch.nn.functional as F
+
+    def held(r):         # (G, Tg, 2E): each token's (expert, keep) pairs
+        return F.one_hot(r.expert * 2 + r.keep.long(), 2 * n_experts).sum(-2)
+    shares, tokens = [], set()
+    for w, p in zip(whole, part):
+        d = (held(p) - held(w)).abs().sum(-1) // 2
+        shares.append(int(d.sum()) / p.expert.numel())
+        tokens.update(d.flatten().nonzero().flatten().tolist())
+    return shares, tokens
+
+
+@contextlib.contextmanager
+def _dropping_expert_partial(cfg, mesh, victim):
+    """Within: the expert sum of a partitioned moe block without the partial
+    of expert rank `victim` (its `moe.expert_partial` zeroed before the
+    reduce-scatter)."""
+    from repro_torch.models import moe
+    partial = moe.expert_partial
+    e0 = victim * (cfg.num_experts // mesh.axis_size("model"))
+
+    def dropping(cfg_, p, r, x, **kw):
+        y = partial(cfg_, p, r, x, **kw)
+        return y.zero_() if kw.get("e0", 0) == e0 else y
+    moe.expert_partial = dropping
+    try:
+        yield
+    finally:
+        moe.expert_partial = partial
+
+
 def _partition_case(torch, dev, arch, layers, dtype, meshes):
     """One model at full width, `layers` deep, in `dtype`: the unpartitioned
     prefill (B1) and PARTITION_STEPS greedy serve steps (B2), then per mesh
@@ -1969,16 +2133,17 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
     share the card: launches exact, logits and K/V against the
     unpartitioned run, the collective bytes counted on the card against the
     dry run's count (bf16: its model's dtype), planted faults in the
-    prefill's reduce-scatter and the serve step's all-reduce (bf16, the
-    first mesh), and for the record wall seconds, the device's idle share
-    and operations of a serve step, the card's peak and each rank's
-    argument bytes."""
+    prefill's reduce-scatter (moe: the last expert rank's partial of the
+    expert sum) and the serve step's all-reduce (bf16, the first mesh), moe's
+    routing flips per layer, and for the record wall seconds, the device's
+    idle share and operations of a serve step, the card's peak and each
+    rank's argument bytes."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels.checks import rel_err
     from repro_torch.launch import dryrun, partition, steps
     from repro_torch.launch import shardings as shd
-    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import init_cache, init_params, tp
     from repro_torch.sp.common import GangMesh
 
     bf16 = dtype == "bfloat16"
@@ -1993,19 +2158,40 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
                          generator=torch.Generator().manual_seed(5)).to(dev)
     prefill, serve = steps.build_prefill_step(cfg, pre), steps.build_serve_step(cfg, dec)
     cache = init_cache(cfg, B, C, device=dev)
-    (lg, cache), pre_s, counts = _run_counted(
-        torch, lambda: prefill(params, {"tokens": toks}, cache))
+    moe = cfg.family == "moe"
+    with _routes() as whole_routes:
+        (lg, cache), pre_s, counts = _run_counted(
+            torch, lambda: prefill(params, {"tokens": toks}, cache))
     _expect("partition", f"{arch} unpartitioned flash_attention per prefill",
             counts["flash_attention"], layers)
     ref_kv = {k: cache[k][:, :, :, :S].clone() for k in ("k", "v")}
+
+    whole_steps = []         # moe: each serve step's routings
 
     def greedy():
         out, last = [], lg
         for _ in range(N):
             tok = last.argmax(-1)
-            last, _ = serve(params, cache, tok)
+            with _routes() as routes:
+                last, _ = serve(params, cache, tok)
+            whole_steps.append(routes.get(None))
             out.append((tok, last))
         return out
+
+    def replayed(prefill_routes, step_routes, tokens):
+        """The unpartitioned prefill and serve steps (fed `tokens`), each
+        routed as the partitioned run was (moe): (prefill logits, its K/V,
+        [(token, logits)] per step)."""
+        c = init_cache(cfg, B, C, device=dev)
+        with _replaying(prefill_routes):
+            first, c = prefill(params, {"tokens": toks}, c)
+        kv = {k: c[k][:, :, :, :S].clone() for k in ("k", "v")}
+        outs = []
+        for tok, routes in zip(tokens, step_routes):
+            with _replaying(routes):
+                last, c = serve(params, c, tok)
+            outs.append((tok, last))
+        return first, kv, outs
     want, dec_s, dc = _run_counted(torch, greedy)
     _expect("partition", f"{arch} unpartitioned flash_decode over {N} steps",
             dc["flash_decode"], layers * N)
@@ -2033,19 +2219,16 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
         p, b, c, rank_bytes = shards(mesh)
         torch.cuda.reset_peak_memory_stats()
         mesh.reset_bytes()
-        (lg_s, c), p_pre_s, pc = _run_counted(torch, lambda: prefill(p, b, c))
+        with _routes() as rank_routes:
+            (lg_s, c), p_pre_s, pc = _run_counted(torch, lambda: prefill(p, b, c))
         pre_bytes = dict(mesh.collective_bytes[0])
         _expect("partition", f"{arch} {tag} flash_attention per prefill",
                 pc["flash_attention"], layers * n)
         got = partition.unshard_tree(lg_s)
-        first_same = bool(torch.equal(got.argmax(-1), lg.argmax(-1)))
-        logits_err = rel_err(got[None, :, :V], lg[None, :, :V].float())
         kv = partition.unshard_tree(c)
-        kv_err = max(rel_err(kv[k][:, :, :, :S].flatten(0, 1), ref_kv[k].flatten(0, 1).float())
-                     for k in ("k", "v"))
-        del kv
+        kv = {k: kv[k][:, :, :, :S].clone() for k in ("k", "v")}
         tspec = shd.batch_specs(cfg, dec, mesh)["token"]
-        step_bytes = []
+        step_bytes, rank_steps = [], []
 
         def run(c=c):
             out, last = [], got
@@ -2055,7 +2238,9 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
                 # f32 greedy on its own
                 tok = want[i][0] if bf16 else last.argmax(-1)
                 mesh.reset_bytes()
-                lg_i, c = serve(p, c, partition.shard_tree(tok, tspec, mesh))
+                with _routes() as routes:
+                    lg_i, c = serve(p, c, partition.shard_tree(tok, tspec, mesh))
+                rank_steps.append(routes)
                 step_bytes.append(dict(mesh.collective_bytes[0]))
                 last = partition.unshard_tree(lg_i)
                 out.append((tok, last))
@@ -2065,9 +2250,44 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
         _expect("partition", f"{arch} {tag} flash_decode over {N} steps", sc["flash_decode"], 0)
         _expect("partition", f"{arch} {tag} flash_attention over {N} steps",
                 sc["flash_attention"], 0)
-        errs = _rel_norms(out, want, V)
-        steps_same, rows_same = _same_tokens(out, want)
-        fails = []
+        fails, flips, base, base_kv, base_out = [], {}, lg, ref_kv, want
+        if moe:
+            # a token that one more rounding routes otherwise (a near tie)
+            # moves by O(gate): the partitioned run is held against the
+            # unpartitioned steps routed as it was, its routing against
+            # theirs (ROUTING_FLIP_TOL), and its readings against the
+            # unpartitioned run's own routing are reported
+            part_pre = _joined_routes(rank_routes, mesh, tp.plan(
+                cfg, mesh, batch=B, seq=S, long_context=False))
+            pl1 = tp.plan(cfg, mesh, batch=B, seq=1, long_context=False)
+            part_steps = [_joined_routes(r, mesh, pl1) for r in rank_steps]
+            share, tokens = _routing_flips(whole_routes[None], part_pre, cfg.num_experts)
+            step_flips = [_routing_flips(w, r, cfg.num_experts)
+                          for w, r in zip(whole_steps, part_steps)]
+            # over every step and layer: a step routes B tokens only
+            serve_share = (sum(sum(sh) for sh, _ in step_flips)
+                           / sum(len(sh) for sh, _ in step_flips))
+            flips = dict(
+                routing_flip_share_per_layer=share, prefill_tokens_flipped=len(tokens),
+                serve_routing_flip_share=serve_share,
+                serve_rows_flipped=sum(len(t) for _, t in step_flips),
+                unreplayed=dict(
+                    prefill_logits_rel_err=rel_err(got[None, :, :V], lg[None, :, :V].float()),
+                    kv_rel_err=max(rel_err(kv[k].flatten(0, 1), ref_kv[k].flatten(0, 1).float())
+                                   for k in ("k", "v")),
+                    serve_rel_err_max=max(_rel_norms(out, want, V)),
+                    steps_tokens_same=_same_tokens(out, want)[0]))
+            if max(share + [serve_share]) > ROUTING_FLIP_TOL:
+                fails.append(f"routing flips {max(share):.3e} (prefill), {serve_share:.3e} "
+                             f"(serve) above {ROUTING_FLIP_TOL}")
+            base, base_kv, base_out = replayed(part_pre, part_steps, [t for t, _ in out])
+        first_same = bool(torch.equal(got.argmax(-1), base.argmax(-1)))
+        logits_err = rel_err(got[None, :, :V], base[None, :, :V].float())
+        kv_err = max(rel_err(kv[k].flatten(0, 1), base_kv[k].flatten(0, 1).float())
+                     for k in ("k", "v"))
+        del kv
+        errs = _rel_norms(out, base_out, V)
+        steps_same, rows_same = _same_tokens(out, base_out)
         if bf16 and not first_same:
             fails.append("the first token differs")
         if max([logits_err, kv_err] + errs) > tol:
@@ -2083,7 +2303,8 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
                    rows_tokens_same=rows_same, prefill_s=p_pre_s,
                    decode_ms_per_step=1e3 * p_dec_s / N, card_peak_gb=peak_gb,
                    rank_argument_gb=rank_bytes / 1e9,
-                   collective_bytes=dict(prefill=pre_bytes, serve_step=step_bytes[0]))
+                   collective_bytes=dict(prefill=pre_bytes, serve_step=step_bytes[0]),
+                   **flips)
         if bf16:
             # the dry run's count on meta ranks (run_combo's numbers),
             # the prefill's with the card's cache of C positions
@@ -2101,13 +2322,32 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
             row["serve_step_profile"] = _profile_steps(
                 torch, lambda: serve(p, back, tok), 2)
         if bf16 and shape == meshes[0]:
-            fp, fb, fc, _ = shards(_dropping_last_partial(mesh))
-            fault = partition.unshard_tree(prefill(fp, fb, fc)[0])
-            row["dropped_partial_rel_err"] = rel_err(fault[None, :, :V], lg[None, :, :V].float())
+            if moe:
+                # the last expert rank's partial dropped; at one layer only
+                # the compared tokens' own assignments reach the logits, so
+                # where none of them lies on that rank, the rank holding
+                # most of them
+                m = mesh.axis_size("model")
+                ends = torch.arange(1, B + 1, device=dev) * S - 1
+                hits = sum(torch.bincount(
+                    (r.expert.flatten(0, 1)[ends] // (cfg.num_experts // m))[
+                        r.keep.flatten(0, 1)[ends]], minlength=m) for r in whole_routes[None])
+                victim = m - 1 if layers > 1 or hits[-1] else int(hits.argmax())
+                fp, fb, fc, _ = shards(mesh)
+                with _dropping_expert_partial(cfg, mesh, victim):
+                    fault = partition.unshard_tree(prefill(fp, fb, fc)[0])
+                what = f"an expert sum without expert rank {victim}'s partial"
+                row.update(dropped_expert_rank=victim,
+                           dropped_expert_rank_hits=int(hits[victim]))
+            else:
+                fp, fb, fc, _ = shards(_dropping_last_partial(mesh))
+                fault = partition.unshard_tree(prefill(fp, fb, fc)[0])
+                what = "a reduce-scatter without the last rank's partial"
+            key = "dropped_expert_partial_rel_err" if moe else "dropped_partial_rel_err"
+            row[key] = rel_err(fault[None, :, :V], lg[None, :, :V].float())
             del fp, fb, fc, fault
-            if row["dropped_partial_rel_err"] <= tol:
-                fails.append(f"a reduce-scatter without the last rank's partial reads "
-                             f"{row['dropped_partial_rel_err']:.3e}, inside the limit")
+            if row[key] <= tol:
+                fails.append(f"{what} reads {row[key]:.3e}, inside the limit")
             # the serve step's own all-reduces: the same shards on a mesh
             # whose psum drops the last rank's partial, the cache's length
             # set back to the prompt's, fed the unpartitioned tokens
@@ -2130,7 +2370,8 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
         del p, b, c, lg_s, got, out
         torch.cuda.empty_cache()
         if fails:
-            raise AssertionError(f"partition: {arch} {dtype} on {tag}: " + "; ".join(fails))
+            raise AssertionError(f"partition: {arch} {dtype} on {tag}: " + "; ".join(fails)
+                                 + f" (readings: {json.dumps(row, default=str)[:3000]})")
     del params, want, ref_kv, lg
     torch.cuda.empty_cache()
     return res, launches
@@ -2190,8 +2431,12 @@ def _pt_shards(cfg, params, mesh, clone):
                  moments_gb=shd.per_device_bytes(opt, ospecs, mesh) / 1e9))
 
 
-def phase_partition_train(torch, dev, smi):
-    """The partitioned FSDP train step (module doc, 21)."""
+def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True):
+    """The partitioned FSDP train step of `arch` at full width against the
+    whole-tensor step from the same weights (module doc, 21): bf16 at
+    `layers` on each of `meshes` (the fault on (4, 1); with `profile` one
+    more step profiled), f32 at `f32_layers`, two steps each; returns
+    {"<arch>_bf16", "<arch>_f32"}."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2200,21 +2445,22 @@ def phase_partition_train(torch, dev, smi):
     from repro_torch.launch import shardings as shd
     from repro_torch.models import init_params
     from repro_torch.models.model import param_leaves
-    from repro_torch.sp.common import GangMesh
+    from repro_torch.sp.common import GangMesh, as_axes
     from repro_torch.training import adamw_init
 
-    t0 = time.perf_counter()
-    full = get_config("mistral_7b")
+    full = get_config(arch)
     B, S = PT_BATCH, PT_SEQ
     shape = ShapeConfig(f"train_{B}x{S}", S, B, "train")
-    runs, launches = {}, dict.fromkeys(_counters(), 0)
+    runs = {}
     # bf16: the whole-tensor step's gradients and one timed step, then per
     # mesh the partitioned gradients and one timed step from a copy
-    cfg = dataclasses.replace(full, num_layers=PT_LAYERS)
+    cfg = dataclasses.replace(full, num_layers=layers)
     params = init_params(cfg, seed=0, device=dev)
     batch = train.make_batch(cfg, B, S, np.random.default_rng(0), dev)
-    (w_loss, w_grads), _, c = _run_counted(
-        torch, lambda: steps.loss_and_grads(cfg, params, batch))
+    moe = cfg.family == "moe"
+    with _routes() as whole_routes:
+        (w_loss, w_grads), _, c = _run_counted(
+            torch, lambda: steps.loss_and_grads(cfg, params, batch))
     _expect("partition_train", "a kernel in the whole-tensor gradients", sum(c.values()), 0)
     w_loss = float(w_loss)
     w_norm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
@@ -2229,15 +2475,32 @@ def phase_partition_train(torch, dev, smi):
     del p1, o1
     torch.cuda.empty_cache()
     bf16 = {}
-    for mshape in PT_MESHES:
+    for mshape in meshes:
         tag = f"{mshape[0]}x{mshape[1]}"
         mesh = GangMesh([dev] * 4, mshape, ("data", "model"))
         p = partition.shard_tree(params, shd.param_specs(cfg, params, mesh, fsdp=True), mesh)
         b = _pt_batch(cfg, mesh, batch)
-        (_, grads), grads_s, c = _run_counted(
-            torch, lambda: partition.loss_and_grads(cfg, p, b))
-        errs = _grad_errs(partition.unshard_tree(grads), w_grads)
-        del grads
+        with _routes() as rank_routes:
+            (_, grads), grads_s, c = _run_counted(
+                torch, lambda: partition.loss_and_grads(cfg, p, b))
+        grads = partition.unshard_tree(grads)
+        base, routing = w_grads, {}
+        if moe:
+            # held against the whole-tensor gradients routed as the
+            # partitioned step was (forward, then the remat's recompute);
+            # the flips against the whole step's own routing counted, and
+            # its gradients' readings reported
+            part = _joined_routes(rank_routes, mesh, partition._train_plan(cfg, p, b))
+            share, _ = _routing_flips(whole_routes[None][:layers], part[:layers],
+                                      cfg.num_experts)
+            with _replaying(part):
+                _, base = steps.loss_and_grads(cfg, params, batch)
+            routing = dict(routing_flip_share_per_layer=share,
+                           grads_rel_err_max_unreplayed=max(_grad_errs(grads, w_grads)))
+        errs = _grad_errs(grads, base)
+        names = ["/".join(map(str, path)) for path, _ in _spec_leaves(p.specs)]
+        worst = sorted(zip(errs, names), reverse=True)[:6]
+        del grads, base
         torch.cuda.empty_cache()
         sp, so, rank_gb = _pt_shards(cfg, params, mesh, clone=True)
         torch.cuda.reset_peak_memory_stats()
@@ -2246,7 +2509,8 @@ def phase_partition_train(torch, dev, smi):
             torch, lambda: steps.build_train_step(cfg)(sp, so, b))
         counted = dict(mesh.collective_bytes[0])
         peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = _profile_steps(torch, lambda: steps.build_train_step(cfg)(sp, so, b), 1)
+        prof = (_profile_steps(torch, lambda: steps.build_train_step(cfg)(sp, so, b), 1)
+                if profile else "not measured")
         del sp, so
         torch.cuda.empty_cache()
         record = dryrun.collective_bytes(cfg, shape, mesh)
@@ -2254,11 +2518,15 @@ def phase_partition_train(torch, dev, smi):
         row = dict(loss=loss, loss_rel_err=abs(loss - w_loss) / abs(w_loss),
                    grad_norm=float(info["grad_norm"]),
                    grad_norm_rel_err=abs(float(info["grad_norm"]) - w_norm) / w_norm,
-                   grads_rel_err_max=max(errs), grads_s=grads_s, step_s=step_s,
+                   grads_rel_err_max=max(errs),
+                   grads_rel_err_worst={n: e for e, n in worst}, grads_s=grads_s, step_s=step_s,
                    card_peak_gb=peak, rank_gb=dict(rank_gb, grads_gb=rank_gb["params_gb"]),
                    collective_bytes=counted, dry_run_collectives_equal=record == counted,
-                   step_profile=prof)
+                   step_profile=prof, **routing)
         fails = []
+        if moe and max(routing["routing_flip_share_per_layer"]) > ROUTING_FLIP_TOL:
+            fails.append(f"routing flips {max(routing['routing_flip_share_per_layer']):.3e} "
+                         f"above {ROUTING_FLIP_TOL}")
         if sum(c.values()) + sum(sc.values()):
             fails.append(f"a kernel launched: {c} {sc}")
         if row["loss_rel_err"] > PT_LOSS_TOL:
@@ -2269,15 +2537,16 @@ def phase_partition_train(torch, dev, smi):
         if not row["dry_run_collectives_equal"]:
             fails.append(f"collective bytes on the card {counted} against the dry run's {record}")
         if mshape == (4, 1):
-            # FSDP alone: the only reduce-scatters are the gradients' (the
-            # backward of the weights' all-gathers); drop the last rank's
+            # FSDP alone: the backward reduce-scatters the gradients of the
+            # weights' all-gathers; drop the last rank's partial there
             fm = _dropping_last_partial(mesh)
             fp = partition.Sharded(p.local, p.specs, fm)
             fb = partition.Sharded(b.local, b.specs, fm)
             _, fg = partition.loss_and_grads(cfg, fp, fb)
             ferrs = _grad_errs(partition.unshard_tree(fg), w_grads)
             del fg, fp, fb
-            touched = [e for e, spec in zip(ferrs, _spec_leaves(p.specs)) if any(spec)]
+            touched = [e for e, (_, spec) in zip(ferrs, _spec_leaves(p.specs))
+                       if any("data" in as_axes(a) for a in spec)]
             row["dropped_partial_rel_err_min"] = min(touched)
             row["dropped_partial_leaves"] = len(touched)
             if min(touched) <= PARTITION_REL_TOL:
@@ -2287,14 +2556,15 @@ def phase_partition_train(torch, dev, smi):
         del p, b
         torch.cuda.empty_cache()
         if fails:
-            raise AssertionError(f"partition_train: bf16 on {tag}: " + "; ".join(fails))
-    runs["mistral_7b_bf16"] = dict(layers=cfg.num_layers, layers_full=full.num_layers,
-                                   batch=B, seq=S, whole=whole, **bf16)
+            raise AssertionError(f"partition_train: {arch} bf16 on {tag}: " + "; ".join(fails)
+                                 + f" (readings: {json.dumps(row, default=str)[:3000]})")
+    runs[f"{arch}_bf16"] = dict(layers=cfg.num_layers, layers_full=full.num_layers,
+                                batch=B, seq=S, whole=whole, **bf16)
     del params, w_grads, batch
     torch.cuda.empty_cache()
 
     # f32: two steps of the whole-tensor step and of each partitioned one
-    cfg = dataclasses.replace(full, num_layers=PT_F32_LAYERS, dtype="float32")
+    cfg = dataclasses.replace(full, num_layers=f32_layers, dtype="float32")
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(1)
     batches = [train.make_batch(cfg, B, S, rng, dev) for _ in range(2)]
@@ -2306,40 +2576,92 @@ def phase_partition_train(torch, dev, smi):
         want.append((float(info["loss"]), float(info["grad_norm"]), _tree_to(p1, "cpu")))
     del p1, o1
     f32 = {}
-    for mshape in PT_MESHES:
+    for mshape in meshes:
         tag = f"{mshape[0]}x{mshape[1]}"
         mesh = GangMesh([dev] * 4, mshape, ("data", "model"))
         sp, so, _ = _pt_shards(cfg, params, mesh, clone=True)
-        row = {}
-        for i, bt in enumerate(batches):
-            sp, so, info = steps.build_train_step(cfg)(sp, so, _pt_batch(cfg, mesh, bt))
-            loss, norm = float(info["loss"]), float(info["grad_norm"])
-            wl, wn, wp = want[i]
+        row, got = {}, []
+        for bt in batches:
+            b = _pt_batch(cfg, mesh, bt)
+            with _routes() as rank_routes:
+                sp, so, info = steps.build_train_step(cfg)(sp, so, b)
+            got.append((float(info["loss"]), float(info["grad_norm"]),
+                        partition.unshard_tree(sp),
+                        _joined_routes(rank_routes, mesh, partition._train_plan(cfg, sp, b))
+                        if moe else None))
+        base = want
+        if moe:
+            # the whole-tensor steps routed as the partitioned ones were
+            p1 = _tree_to(params, dev)
+            o1 = adamw_init(p1)
+            base = []
+            for bt, (*_, routes) in zip(batches, got):
+                with _replaying(routes):
+                    p1, o1, info = steps.build_train_step(cfg)(p1, o1, bt)
+                base.append((float(info["loss"]), float(info["grad_norm"]), _tree_to(p1, "cpu")))
+            del p1, o1
+        for i, (loss, norm, gp, _) in enumerate(got):
+            wl, wn, wp = base[i]
             for what, g_, w_ in (("loss", loss, wl), ("grad_norm", norm, wn)):
                 if not abs(g_ - w_) <= TRAIN_TOL * abs(w_):
-                    raise AssertionError(f"partition_train: f32 on {tag} step {i}: {what} "
-                                         f"{g_} against {w_}")
-            worst, off = _params_close(partition.unshard_tree(sp), wp)
+                    raise AssertionError(f"partition_train: {arch} f32 on {tag} step {i}: "
+                                         f"{what} {g_} against {w_}")
+            worst, off = _params_close(gp, wp)
             row[f"step{i + 1}"] = dict(loss=loss, loss_rel_err=abs(loss - wl) / abs(wl),
                                        grad_norm_rel_err=abs(norm - wn) / abs(wn),
                                        params_max_abs_err=worst, params_outside_tol=off)
         f32[tag] = row
-        del sp, so
+        del sp, so, got, base
         torch.cuda.empty_cache()
-    runs["mistral_7b_f32"] = dict(layers=cfg.num_layers, batch=B, seq=S, tol=TRAIN_TOL, **f32)
+    runs[f"{arch}_f32"] = dict(layers=cfg.num_layers, batch=B, seq=S, tol=TRAIN_TOL, **f32)
     del params, batches, want
     torch.cuda.empty_cache()
-    _say("partition_train", nvidia_smi=smi, cut=f"{PT_LAYERS} of {full.num_layers} layers "
+    return runs
+
+
+def phase_partition_train(torch, dev, smi):
+    """The partitioned FSDP train step (module doc, 21)."""
+    t0 = time.perf_counter()
+    runs = _pt_case(torch, dev, "mistral_7b", PT_LAYERS, PT_F32_LAYERS, PT_MESHES)
+    _say("partition_train", nvidia_smi=smi, cut=f"{PT_LAYERS} of 32 layers "
          f"(bf16; f32 {PT_F32_LAYERS}): the whole-tensor and the partitioned step each hold "
          "their own weights and moments", loss_tol=PT_LOSS_TOL, rel_tol=PARTITION_REL_TOL,
-         runs=runs, launches=launches, phase_s=time.perf_counter() - t0)
+         runs=runs, launches=dict.fromkeys(_counters(), 0),
+         phase_s=time.perf_counter() - t0)
+    return dict.fromkeys(_counters(), 0)
+
+
+def phase_partition_moe(torch, dev, smi):
+    """The moe family's partitioned steps (module doc, 22)."""
+    t0 = time.perf_counter()
+    runs, launches = {}, dict.fromkeys(_counters(), 0)
+    for name, arch, layers, dtype, meshes in (
+            ("olmoe_1b_7b_bf16", "olmoe_1b_7b", None, "bfloat16", PM_MESHES),
+            ("olmoe_1b_7b_f32", "olmoe_1b_7b", PM_F32_LAYERS, "float32", PM_MESHES),
+            ("llama4_maverick_400b_a17b_bf16", "llama4_maverick_400b_a17b",
+             PM_LLAMA4_LAYERS, "bfloat16", ((1, 4),))):
+        if layers is None:
+            from repro_torch.configs import get_config
+            layers = get_config(arch).num_layers
+        runs[name], counts = _partition_case(torch, dev, arch, layers, dtype, meshes)
+        for k, v in counts.items():
+            launches[k] += v
+    runs["train"] = _pt_case(torch, dev, "olmoe_1b_7b", PM_TRAIN_LAYERS,
+                             PM_TRAIN_F32_LAYERS, PT_MESHES, profile=False)
+    _say("partition_moe", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
+         f32_tol=PARTITION_F32_TOL, loss_tol=PT_LOSS_TOL,
+         cut=f"llama4_maverick_400b_a17b {PM_LLAMA4_LAYERS} of 48 layers; olmoe_1b_7b's "
+         f"train step {PM_TRAIN_LAYERS} of 16 (f32 {PM_TRAIN_F32_LAYERS}), its f32 serving "
+         f"run {PM_F32_LAYERS}", runs=runs, launches=launches,
+         phase_s=time.perf_counter() - t0)
     return launches
 
 
 def _spec_leaves(specs):
+    """[(path, spec)] of a spec tree, in `param_leaves` order."""
     from repro_torch.launch.shardings import walk
     out = []
-    walk(lambda path, spec, n: out.append(spec), specs)
+    walk(lambda path, spec, n: out.append((path, spec)), specs)
     return out
 
 
@@ -2354,16 +2676,30 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.models import init_params
-
-    dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
+    # the dry run's matrix is host work on the meta device: it runs in a
+    # process of its own from here to the dryrun phase, which waits for it
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        matrix_job = pool.apply_async(_matrix_job, (ROOT / "build" / "dryrun_torch",))
+        return _phases(torch, smi, matrix_job)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _phases(torch, smi, matrix_job) -> int:
+    """Every phase after the card's checks, in order (module doc), and the
+    closing JSON lines."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+
+    dev = torch.device("cuda", 0)
     build_s = _build.build_all()
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln
                  or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
@@ -2418,13 +2754,16 @@ def main() -> int:
     for name, n in phase_gang(torch, dev).items():
         launches[name] += n
     torch.cuda.empty_cache()
-    for name, n in phase_dryrun(torch, dev, smi).items():
+    for name, n in phase_dryrun(torch, dev, smi, matrix_job).items():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in phase_partition(torch, dev, smi).items():
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in phase_partition_train(torch, dev, smi).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in phase_partition_moe(torch, dev, smi).items():
         launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

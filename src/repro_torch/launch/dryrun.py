@@ -38,18 +38,26 @@ temp, new outputs, FLOPs and bytes are extrapolated linearly to the full
 depth: the peak (in the backward or the optimizer update) grows by the
 same bytes with every unit.
 
+A train step's optimizer state at 2 and 3 units is the full depth's cut to
+them (`_opt_at_depth`): the optimizer factors a leaf by its stacked size,
+so a leaf whole at 3 units may be factored at the full depth, and its
+factored moments' temporaries are what the full step holds.
+
 Collective bytes, which the reference parses from partitioned HLO
 (``collective_bytes_from_hlo``: each collective's result bytes in one
 device's program), come from the partitioner's own count: the train,
-prefill and serve steps of the dense and vlm families run partitioned
-(`launch/partition.py`) on meta ranks of the combo's mesh, rank 0's body
-alone, and the mesh counts rank 0's collective bytes by kind — the train
-step's backward too, each collective's dual (`sp.common.collective`),
-with FSDP over the batch axes ("pod", "data" on the multi-pod mesh); a
-step deeper than 3 layers runs at 2 and 3 and is extrapolated (every
-layer moves the same bytes).  The other families have no partitioned
-step yet: their records carry ``"collectives": null`` and the reason
-(`collectives_reason`).
+prefill and serve steps of the dense, vlm and moe families run
+partitioned (`launch/partition.py`) on meta ranks of the combo's mesh,
+rank 0's body alone, and the mesh counts rank 0's collective bytes by
+kind — the train step's backward too, each collective's dual
+(`sp.common.collective`), with FSDP over the batch axes ("pod", "data" on
+the multi-pod mesh); moe's experts go over "model" and its meta rank
+dispatches through the reference's one-hot restricted to its experts
+(`moe.expert_partial`: a meta rank has no values to route by); a step
+deeper than 3 layers runs at 2 and 3 and is extrapolated (every layer
+moves the same bytes).  The ssm, hybrid and audio families have no
+partitioned step yet: their records carry ``"collectives": null`` and the
+reason (`collectives_reason`).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
         --shape train_4k [--multi-pod] [--out build/dryrun_torch]
@@ -83,6 +91,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as mdl
 from repro_torch.models import tp
 from repro_torch.sp.common import GangMesh
+from repro_torch.training import optimizer
 
 OUT = Path("build/dryrun_torch")
 
@@ -91,7 +100,7 @@ def collectives_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
     """Why a combo's record carries no collective bytes (None: it does)."""
     if cfg.family not in tp.FAMILIES:
         return (f"the partitioned {cfg.family} step is not ported yet: "
-                f"partitioned steps cover the {' and '.join(tp.FAMILIES)} families")
+                f"partitioned steps cover the {tp.families()} families")
     return None
 
 
@@ -204,11 +213,27 @@ def _units(cfg: ModelConfig):
     return cfg.num_layers, lambda k: dataclasses.replace(cfg, num_layers=k)
 
 
-def _step_args(cfg: ModelConfig, shape: ShapeConfig):
-    """(step, its arguments, the donated arguments by name) on meta."""
+def _opt_at_depth(cfg: ModelConfig, full: Optional[ModelConfig]):
+    """The optimizer state of `full` (the model at its full depth; None:
+    cfg itself) cut to cfg's depth, every stacked subtree ("layers",
+    "encoder") to cfg's length.  The optimizer factors a leaf by its
+    stacked size, so a leaf whole at 2 or 3 units may be factored at the
+    full depth (mistral_7b's wq and wo: at 32 layers, not at 3), and a
+    step run at a cut depth must carry the full depth's moments."""
+    params = st.params_structs(cfg)
+    if full is None:
+        return st.opt_structs(params)
+    opt = st.opt_structs(st.params_structs(full))
+    return opt._replace(moments=dict(opt.moments, **{
+        k: opt.moments[k][:len(params[k])] for k in optimizer.STACKED if k in params}))
+
+
+def _step_args(cfg: ModelConfig, shape: ShapeConfig, full: Optional[ModelConfig] = None):
+    """(step, its arguments, the donated arguments by name) on meta; a
+    train step's optimizer state that of `full` cut to cfg's depth."""
     params, batch = st.params_structs(cfg), st.batch_structs(cfg, shape)
     if shape.kind == "train":
-        opt = st.opt_structs(params)
+        opt = _opt_at_depth(cfg, full)
         return (st.build_train_step(cfg), (params, opt, batch),
                 {"params": params, "opt": opt})
     cache = st.cache_structs(cfg, shape)
@@ -224,11 +249,13 @@ def _norm(path) -> tuple:
     return tuple(c for c in path if not isinstance(c, int))
 
 
-def _run(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    """One meta run of the step: global temp, new-output bytes, FLOPs,
-    bytes accessed, and the donated leaves (by path) it does not return in
+def _run(cfg: ModelConfig, shape: ShapeConfig,
+         full: Optional[ModelConfig] = None) -> Dict[str, Any]:
+    """One meta run of the step (train: with `full`'s moments cut to cfg's
+    depth, `_opt_at_depth`): global temp, new-output bytes, FLOPs, bytes
+    accessed, and the donated leaves (by path) it does not return in
     place."""
-    fn, args, donated = _step_args(cfg, shape)
+    fn, args, donated = _step_args(cfg, shape, full)
     donated_sids = []       # before the step, which may rebind dict entries
     shd.walk(lambda path, x, n: donated_sids.append(
         (_norm(path), x.untyped_storage()._cdata)), donated)
@@ -246,25 +273,24 @@ def _run(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
 @functools.lru_cache(maxsize=8)
 def step_account(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     """`_run` of the step at the config's depth; a train step deeper than
-    3 units at 2 and 3 units, extrapolated linearly.  The same on every
-    mesh, so the matrix's second mesh reads it from the cache (callers must
-    not mutate it)."""
+    3 units at 2 and 3 units, with the full depth's moments cut to them,
+    extrapolated linearly.  The same on every mesh, so the matrix's second
+    mesh reads it from the cache (callers must not mutate it)."""
     n, cut = _units(cfg)
     if shape.kind != "train" or n <= 3:
         return dict(_run(cfg, shape), units=n, units_run=[n])
-    two, three = _run(cut(2), shape), _run(cut(3), shape)
+    two, three = _run(cut(2), shape, cfg), _run(cut(3), shape, cfg)
     out = {k: three[k] + (n - 3) * (three[k] - two[k])
            for k in ("temp", "new_out", "flops", "bytes")}
     return dict(out, replaced=two["replaced"], units=n, units_run=[2, 3])
 
 
 def _count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh,
-                       max_len: Optional[int], depth: int) -> Dict[str, int]:
+                       max_len: Optional[int], full: ModelConfig) -> Dict[str, int]:
     """One run of the partitioned step on meta ranks shaped like `mesh`:
-    rank 0's collective bytes by kind.  A train step's moments are those
-    of the model `depth` layers deep, cut to cfg's: the optimizer factors
-    a leaf by its stacked size (mistral_7b's wq at 8 layers, not at 3),
-    and a factored leaf's means move bytes."""
+    rank 0's collective bytes by kind.  A train step's moments are
+    `full`'s cut to cfg's depth (`_opt_at_depth`): a factored leaf's means
+    move bytes."""
     mesh = GangMesh([torch.device("meta")] * mesh.n_ranks, tuple(mesh.shape.values()),
                     mesh.axis_names)
     params = st.params_structs(cfg)
@@ -273,9 +299,7 @@ def _count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh,
     batch = st.batch_structs(cfg, shape)
     bspecs = shd.batch_specs(cfg, shape, mesh)
     if shape.kind == "train":
-        opt = st.opt_structs(st.params_structs(dataclasses.replace(cfg, num_layers=depth)))
-        opt = opt._replace(moments=dict(opt.moments,
-                                        layers=opt.moments["layers"][:cfg.num_layers]))
+        opt = _opt_at_depth(cfg, full)
         st.build_train_step(cfg)(p, partition.shard_tree(opt, shd.opt_specs(pspecs, opt), mesh),
                                  partition.shard_tree(batch, bspecs, mesh))
         return dict(mesh.collective_bytes[0])
@@ -303,9 +327,9 @@ def collective_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh, *,
     on meta ranks, at 2 and 3 layers extrapolated past 3."""
     n, cut = _units(cfg)
     if n <= 3:
-        return _count_collectives(cfg, shape, mesh, max_len, n)
-    two = _count_collectives(cut(2), shape, mesh, max_len, n)
-    three = _count_collectives(cut(3), shape, mesh, max_len, n)
+        return _count_collectives(cfg, shape, mesh, max_len, cfg)
+    two = _count_collectives(cut(2), shape, mesh, max_len, cfg)
+    three = _count_collectives(cut(3), shape, mesh, max_len, cfg)
     return {k: three[k] + (n - 3) * (three[k] - two[k]) for k in three}
 
 

@@ -8,10 +8,11 @@ full-width model's shards on ranks that share one card cost no memory.
 `unshard_tree` joins the pieces back.  `run_lockstep` runs one body per
 rank (`sp.common.lockstep`); a body reaches the other ranks only through
 its `Rank`'s collectives, which the mesh counts by kind.  `prefill` and
-`serve` are the partitioned prefill and serve steps of the dense and vlm
-families (`models/tp.py`), `loss_and_grads` and `train` their FSDP train
-step; `steps.build_prefill_step`, `build_serve_step` and
-`build_train_step` run them when given `Sharded` arguments.  Under
+`serve` are the partitioned prefill and serve steps of the dense, vlm and
+moe families (`models/tp.py`; moe with its experts over "model"),
+`loss_and_grads` and `train` their FSDP train step;
+`steps.build_prefill_step`, `build_serve_step` and `build_train_step` run
+them when given `Sharded` arguments.  Under
 autograd the ranks' pieces form one graph (each collective one node over
 every rank's tensor, `sp.common.collective`), `Rank.remat` checkpoints
 one layer of every rank at once, and one backward runs from the caller's
@@ -230,20 +231,30 @@ class Rank:
         """Wait until every rank has come here."""
         self.meet(self.mesh.axis_names, "barrier", lambda m: [None] * m.n_ranks)
 
-    def remat(self, tag: str, fn: Callable, x: torch.Tensor) -> torch.Tensor:
-        """``fn(rank, x)``, every rank's call run in lockstep as one
-        activation checkpoint (`_Remat`): the ranks meet here, the call of
-        every rank runs without autograd, and the backward runs them all
-        again.  A per-rank checkpoint could not: its saved-tensor hooks are
-        the rank thread's, and its recompute would reach the collectives
-        one rank at a time."""
-        if self._meet is None:
-            return _Remat.apply(lambda xs: [fn(self, xs[0])], x)[0]
+    def remat(self, tag: str, fn: Callable, x: torch.Tensor):
+        """``fn(rank, x)`` (a tensor, or a tuple of tensors: a moe layer's
+        residual and its load-balance loss), every rank's call run in
+        lockstep as one activation checkpoint (`_Remat`): the ranks meet
+        here, the call of every rank runs without autograd, and the
+        backward runs them all again.  A per-rank checkpoint could not: its
+        saved-tensor hooks are the rank thread's, and its recompute would
+        reach the collectives one rank at a time."""
+        single = []
 
-        def stage(mesh, fns, xs):
-            return list(_Remat.apply(lambda ys: run_lockstep(
-                mesh, lambda rk: fns[rk.rank](rk, ys[rk.rank])), *xs))
-        return self.meet((), tag, stage, fn, x)
+        def outs(rk, y):
+            out = fn(rk, y)
+            single.append(torch.is_tensor(out))
+            return (out,) if torch.is_tensor(out) else tuple(out)
+        if self._meet is None:
+            got = _Remat.apply(lambda xs: list(outs(self, xs[0])), x)
+        else:
+            def stage(mesh, fns, xs):
+                flat = _Remat.apply(lambda ys: [t for o in run_lockstep(
+                    mesh, lambda rk: fns[rk.rank](rk, ys[rk.rank])) for t in o], *xs)
+                k = len(flat) // len(xs)
+                return [flat[r * k:(r + 1) * k] for r in range(len(xs))]
+            got = self.meet((), tag, stage, outs, x)
+        return got[0] if single[0] else tuple(got)
 
     def all_gather(self, x, axes: Axes, *, axis: int):
         return self._collective("all_gather", x, axes, axis=axis)
@@ -302,8 +313,7 @@ def _mesh_of(*trees: Sharded) -> GangMesh:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in tp.FAMILIES:
         raise NotImplementedError(
-            f"partitioned steps cover the {' and '.join(tp.FAMILIES)} families, "
-            f"not {cfg.family}")
+            f"partitioned steps cover the {tp.families()} families, not {cfg.family}")
 
 
 def prefill(cfg: ModelConfig, params: Sharded, batch: Sharded, cache: Sharded, *,

@@ -14,8 +14,9 @@ sends the serve step's decode attention over a sharded cache sequence to
 the sequence-sharded decode (`layers._cached_decode_attention`).
 
 Given `launch.partition.Sharded` arguments (`partition.shard_tree` over
-the spec trees of `launch/shardings.py`), the three steps of the dense
-and vlm families run partitioned over the arguments' mesh, as XLA
+the spec trees of `launch/shardings.py`), the three steps of the dense,
+vlm and moe families (moe with its experts over "model") run partitioned
+over the arguments' mesh, as XLA
 partitions the reference's under its rules: each rank holds its shards and
 runs `models/tp.py`'s body in lockstep with the others; the train step
 under the fsdp rules (`partition.train`).  Whole tensors take the path

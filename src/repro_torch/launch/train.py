@@ -7,8 +7,8 @@ Each step is `steps.build_train_step` over a host mesh
 (`launch/mesh.make_host_mesh`: every visible card, or the CPU), as the
 reference's launcher jits it over its mesh: the loss with remat over the
 plain PyTorch attention and SSD, its gradients, one AdamW update.  On a
-mesh of more than one rank the step is the partitioned FSDP step (dense
-and vlm): the params, the optimizer state and each batch are cut by
+mesh of more than one rank the step is the partitioned FSDP step (dense,
+vlm and moe: `models/tp.FAMILIES`): the params, the optimizer state and each batch are cut by
 ``shardings.param_specs(fsdp=True)``, `opt_specs` and `batch_specs`.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mistral_7b --full
@@ -58,7 +58,8 @@ def step_flops(cfg: ModelConfig, params, batch: int, seq: int) -> Optional[float
     """Operations of one train step of a decoder-only model (dense, vlm):
     6 x N x tokens, N the parameters that enter a matmul (all but the
     embedding table), plus the attention's 12 x H x hd per visible (query,
-    key) pair per layer (forward 4, backward 8).  None for other families."""
+    key) pair per layer (forward 4, backward 8).  None for other families
+    (moe: the reference has no count to hold one against)."""
     if cfg.family not in ("dense", "vlm"):
         return None
     S = seq + (cfg.frontend_tokens if cfg.family == "vlm" else 0)

@@ -10,10 +10,17 @@ SwiGLU runs on its own rows, and the gated outputs are added back to their
 tokens.  Each one-hot term of the reference selects exactly one (token, k),
 so the two agree; `moe_block_onehot` is the reference's einsum form in plain
 PyTorch, which the tests hold the index path against.
+
+The block is cut in two so that a rank of a partitioned step (`models/tp.py`)
+can run a subset of the experts: `route` (or `route_logits`, from router
+logits gathered over the ranks that hold the router's columns) decides every
+assignment of a routing group, and `expert_partial` sums the gated outputs
+of one range of experts over the kept assignments of one range of tokens.
+`moe_block` is `expert_partial` over every expert and token.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,48 +60,65 @@ class Routing(NamedTuple):
     capacity: int
 
 
-def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor, *,
-          capacity_factor: Optional[float] = None,
-          group_size: int = MOE_GROUP_SIZE) -> Routing:
-    """The reference's routing of x (B, S, d): G groups (T // group_size,
-    lowered until it divides T), f32 softmax over the experts, top-K
-    renormalised before the drop, and a slot per assignment counted in
-    (token, k) order within its group; an assignment at a slot >= C =
-    max(int(Tg * K * cf / E), 1) is dropped and keeps a zero gate."""
-    B, S, d = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
-    cf = capacity_factor or cfg.capacity_factor
-    T = B * S
+def groups(T: int, group_size: int = MOE_GROUP_SIZE) -> Tuple[int, int]:
+    """(G, Tg): the reference's routing groups of T tokens, G = T //
+    group_size lowered until it divides T."""
     G = max(T // group_size, 1)
     while T % G:
         G -= 1
-    Tg = T // G
+    return G, T // G
+
+
+def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor, *,
+          capacity_factor: Optional[float] = None,
+          group_size: int = MOE_GROUP_SIZE) -> Routing:
+    """The reference's routing of x (B, S, d) in `groups`: the f32 router
+    logits, then `route_logits`."""
+    B, S, d = x.shape
+    G, Tg = groups(B * S, group_size)
     logits = torch.matmul(x.reshape(G, Tg, d).float(), router.float())
+    return route_logits(cfg, logits, capacity_factor=capacity_factor)
+
+
+def route_logits(cfg: ModelConfig, logits: torch.Tensor, *,
+                 capacity_factor: Optional[float] = None) -> Routing:
+    """Routing from the f32 router logits (G, Tg, E): softmax over the
+    experts, top-K renormalised before the drop, and a slot per assignment
+    counted in (token, k) order within its group; an assignment at a slot
+    >= C = max(int(Tg * K * cf / E), 1) is dropped and keeps a zero gate."""
+    G, Tg, E = logits.shape
+    K = cfg.experts_per_token
+    cf = capacity_factor or cfg.capacity_factor
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     gate, expert = probs.topk(K, dim=-1)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     C = max(int(Tg * K * cf / E), 1)
     # slot = assignments to the same expert earlier in the group's (t, k)
     # order: a stable sort by (group, expert) keeps that order in each run
-    key = (torch.arange(G, device=x.device)[:, None] * E
-           + expert.reshape(G, Tg * K)).flatten()
+    key = (torch.arange(G, device=dev)[:, None] * E + expert.reshape(G, Tg * K)).flatten()
     order = torch.sort(key, stable=True).indices
-    counts = torch.zeros(G * E, dtype=key.dtype, device=x.device).index_add_(
+    counts = torch.zeros(G * E, dtype=key.dtype, device=dev).index_add_(
         0, key, torch.ones_like(key))           # bincount, shaped without the data
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.empty_like(key)
-    slot[order] = torch.arange(key.numel(), device=x.device) - starts[key[order]]
+    slot[order] = torch.arange(key.numel(), device=dev) - starts[key[order]]
     slot = slot.reshape(G, Tg, K)
     keep = slot < C
     return Routing(probs, expert, gate * keep, slot, keep, C)
 
 
+def balance_terms(cfg: ModelConfig, r: Routing) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(me, ce) (E,): the mean router probability and the share of first
+    choices of each expert over the routing's groups and tokens."""
+    return (r.probs.mean((0, 1)),
+            F.one_hot(r.expert[..., 0], cfg.num_experts).float().mean((0, 1)))
+
+
 def _aux(cfg: ModelConfig, r: Routing) -> Dict[str, torch.Tensor]:
     """Switch-style load-balance loss and the share of assignments dropped."""
-    E = cfg.num_experts
-    me = r.probs.mean((0, 1))
-    ce = F.one_hot(r.expert[..., 0], E).float().mean((0, 1))
-    return {"lb_loss": E * (me * ce).sum(),
+    me, ce = balance_terms(cfg, r)
+    return {"lb_loss": cfg.num_experts * (me * ce).sum(),
             "dropped_frac": 1.0 - r.keep.float().mean()}
 
 
@@ -102,30 +126,34 @@ def _shared(p, x, y):
     return y + swiglu(x, p["shared"]) if "shared" in p else y
 
 
-def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
-              capacity_factor: Optional[float] = None,
-              group_size: int = MOE_GROUP_SIZE):
-    """x (B, S, d) -> (y (B, S, d), aux {"lb_loss", "dropped_frac"}).  Each
-    expert with kept assignments runs its SwiGLU on its own rows (matmuls in
-    x's dtype); the outputs, times the gates in x's dtype, are summed per
-    token in f32.  On the "meta" device (the dry run's account, which has no
-    values to route by) it is `moe_block_onehot`, the reference's own
-    dispatch."""
+def expert_partial(cfg: ModelConfig, p: Dict[str, torch.Tensor], r: Routing,
+                   x: torch.Tensor, *, e0: int = 0,
+                   tokens: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Per token of `tokens` (a range [t0, t1) of the routing's tokens,
+    flattened over its groups in order; default all), the f32 sum over its
+    kept assignments to the experts [e0, e0 + E_loc) of gate x SwiGLU_e(x):
+    (t1 - t0, d).  `p` holds those experts' weights (w_gate, w_up (E_loc, d,
+    ff), w_down (E_loc, ff, d)); `x` (T, d) every routed token's input.
+    Each expert with kept assignments there runs its SwiGLU on its own rows
+    (matmuls in x's dtype, the gates in x's dtype); each (token, k) output
+    lands in its own row and the rows are summed over k in order
+    (deterministic, where an ``index_add_`` on the card is not).  On the
+    "meta" device (the dry run, which has no values to route by) the
+    reference's one-hot dispatch restricted to the range
+    (`_expert_partial_onehot`)."""
+    T, d = x.shape
+    t0, t1 = tokens or (0, T)
     if x.device.type == "meta":
-        return moe_block_onehot(cfg, p, x, capacity_factor=capacity_factor,
-                                group_size=group_size)
-    B, S, d = x.shape
+        return _expert_partial_onehot(cfg, p, r, x, e0)[t0:t1]
     K = cfg.experts_per_token
-    r = route(cfg, p["router"], x, capacity_factor=capacity_factor,
-              group_size=group_size)
-    flat = r.expert.flatten()
-    kept = torch.nonzero(r.keep.flatten()).squeeze(1)        # (token, k) order
+    n_exp = p["w_gate"].shape[0]
+    flat = r.expert.flatten()[t0 * K:t1 * K]
+    mine = r.keep.flatten()[t0 * K:t1 * K] & (flat >= e0) & (flat < e0 + n_exp)
+    kept = torch.nonzero(mine).squeeze(1)                     # (token, k) order
     kept = kept[torch.sort(flat[kept], stable=True).indices]  # grouped by expert
-    rows = torch.bincount(flat[kept], minlength=cfg.num_experts).tolist()
-    tokens = kept // K
-    xt = x.reshape(B * S, d)
-    xin = xt[tokens]
-    gate = r.gate.flatten()[kept].to(x.dtype).float()
+    rows = torch.bincount(flat[kept] - e0, minlength=n_exp).tolist()
+    xin = x[t0:t1][kept // K]
+    gate = r.gate.flatten()[t0 * K:t1 * K][kept].to(x.dtype).float()
     out = torch.empty_like(xin)
     start = 0
     for e, n in enumerate(rows):
@@ -135,11 +163,41 @@ def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
                 * torch.matmul(xe, p["w_up"][e].to(x.dtype))
             out[start:start + n] = torch.matmul(h, p["w_down"][e].to(x.dtype))
             start += n
-    # each kept (token, k) output into its own row, then the sum over k in
-    # order: deterministic, where an index_add_ on the card is not
-    y = torch.zeros((B * S * K, d), dtype=torch.float32, device=x.device)
+    y = torch.zeros(((t1 - t0) * K, d), dtype=torch.float32, device=x.device)
     y[kept] = out.float() * gate[:, None]
-    y = y.reshape(B, S, K, d).sum(2).to(x.dtype)
+    return y.reshape(t1 - t0, K, d).sum(1)
+
+
+def _expert_partial_onehot(cfg: ModelConfig, p: Dict[str, torch.Tensor], r: Routing,
+                           x: torch.Tensor, e0: int = 0) -> torch.Tensor:
+    """`expert_partial` of every token through the reference's (G, Tg, E, C)
+    one-hot dispatch and combine einsums, restricted to the experts of `p`
+    from e0; the combine in x's dtype, as the reference's."""
+    G, Tg, _ = r.expert.shape
+    C, E, dt = r.capacity, cfg.num_experts, x.dtype
+    n_exp = p["w_gate"].shape[0]
+    xt = x.reshape(G, Tg, -1)
+    slot_oh = F.one_hot(torch.where(r.keep, r.slot, C), C + 1)[..., :C].to(dt)
+    exp_oh = F.one_hot(r.expert, E)[..., e0:e0 + n_exp].to(dt)
+    disp = torch.einsum("gtke,gtkc->gtec", exp_oh, slot_oh)
+    expert_in = torch.einsum("gtec,gtd->gecd", disp, xt)
+    g = F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"].to(dt)))
+    u = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"].to(dt))
+    expert_out = torch.einsum("gecf,efd->gecd", g * u, p["w_down"].to(dt))
+    comb = torch.einsum("gtke,gtkc,gtk->gtec", exp_oh, slot_oh, r.gate.to(dt))
+    return torch.einsum("gtec,gecd->gtd", comb, expert_out).reshape(G * Tg, -1).float()
+
+
+def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
+              capacity_factor: Optional[float] = None,
+              group_size: int = MOE_GROUP_SIZE):
+    """x (B, S, d) -> (y (B, S, d), aux {"lb_loss", "dropped_frac"}):
+    `route`, then `expert_partial` over every expert and token (on "meta"
+    the reference's one-hot dispatch), rounded to x's dtype, plus the
+    shared expert where the config has one."""
+    B, S, d = x.shape
+    r = route(cfg, p["router"], x, capacity_factor=capacity_factor, group_size=group_size)
+    y = expert_partial(cfg, p, r, x.reshape(B * S, d)).reshape(B, S, d).to(x.dtype)
     return _shared(p, x, y), _aux(cfg, r)
 
 
@@ -150,20 +208,6 @@ def moe_block_onehot(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     and combine einsums around batched expert products.  Small shapes only;
     the plain version `moe_block` is held against."""
     B, S, d = x.shape
-    E = cfg.num_experts
-    r = route(cfg, p["router"], x, capacity_factor=capacity_factor,
-              group_size=group_size)
-    G, Tg, _ = r.expert.shape
-    C = r.capacity
-    xt = x.reshape(G, Tg, d)
-    dt = x.dtype
-    slot_oh = F.one_hot(torch.where(r.keep, r.slot, C), C + 1)[..., :C].to(dt)
-    exp_oh = F.one_hot(r.expert, E).to(dt)
-    disp = torch.einsum("gtke,gtkc->gtec", exp_oh, slot_oh)
-    expert_in = torch.einsum("gtec,gtd->gecd", disp, xt)
-    g = F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"].to(dt)))
-    u = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"].to(dt))
-    expert_out = torch.einsum("gecf,efd->gecd", g * u, p["w_down"].to(dt))
-    comb = torch.einsum("gtke,gtkc,gtk->gtec", exp_oh, slot_oh, r.gate.to(dt))
-    y = torch.einsum("gtec,gecd->gtd", comb, expert_out).reshape(B, S, d).to(dt)
+    r = route(cfg, p["router"], x, capacity_factor=capacity_factor, group_size=group_size)
+    y = _expert_partial_onehot(cfg, p, r, x.reshape(B * S, d)).reshape(B, S, d).to(x.dtype)
     return _shared(p, x, y), _aux(cfg, r)

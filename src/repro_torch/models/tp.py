@@ -1,9 +1,10 @@
-"""Per-rank bodies of the dense and vlm families under the sharding rules:
-what `models/layers.py` and the dense branch of `models/model.py` become
-when XLA's SPMD partitioner splits the reference's steps under
-`standard_rules`, written out for one rank of a `GangMesh`.  The caller
-(`launch/partition.py`) runs one body per rank in lockstep; a body reaches
-the other ranks only through its `Rank`'s collectives.
+"""Per-rank bodies of the dense, vlm and moe families under the sharding
+rules: what `models/layers.py`, `models/moe.py` and the dense and moe
+branches of `models/model.py` become when XLA's SPMD partitioner splits the
+reference's steps under `standard_rules`, written out for one rank of a
+`GangMesh`.  The caller (`launch/partition.py`) runs one body per rank in
+lockstep; a body reaches the other ranks only through its `Rank`'s
+collectives.
 
 The layouts come from the reference's call sites through `resolve_spec` /
 `resolve_first` (`plan`), not from a fixed plan:
@@ -31,16 +32,31 @@ The layouts come from the reference's call sites through `resolve_spec` /
   the serve step writes a token's K/V on the rank whose slice holds its
   position and decodes with `sp.decode.distributed_decode_local` over the
   cache's sequence axes;
+* the moe block (`_moe`) with its experts over "experts" ("model"): each
+  rank computes the f32 router logits of its router columns and
+  all-gathers them, so every rank routes the whole routing group (the
+  reference's capacity, slots and drops); the groups ("batch", None, None)
+  are the rank's own rows where the batch axes cut them, else the rank
+  all-gathers the routing input over the batch axes (the serve step: one
+  group of every sequence) and runs only its own rows; the rank's experts
+  run their SwiGLU on their kept rows and the partial sums over the
+  expert ranks, rounded to the activations' dtype as the reference's
+  combine einsum yields them, are reduce-scattered onto the residual's
+  sequence; where the experts do not divide "model" every rank runs every
+  expert and no sum is taken; the shared expert is column- and
+  row-parallel like the dense MLP;
 * the train step's loss (`loss_rank`, under the fsdp rules) on the logits
   as the reference constrains them, the sequence gathered and the
   vocabulary over "model": each slice's max and sum of exponentials
   merged across the vocab ranks, the labels' logits taken where their
-  slice lies.
+  slice lies; moe adds 0.01 x the load-balance loss, its per-expert means
+  taken over every group.
 
 A dim that its axes do not divide stays whole, as the rules leave it.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -51,13 +67,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import model as mdl
+from repro_torch.models import moe as MOE
 from repro_torch.models.sharding import (resolve_first, resolve_spec,
                                          standard_rules, use_rules)
 from repro_torch.sp.common import as_axes
 from repro_torch.sp.decode import distributed_decode_local
 
 Axes = Tuple[str, ...]
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe")
+
+
+def families() -> str:
+    """FAMILIES in words: "dense, vlm and moe"."""
+    return ", ".join(FAMILIES[:-1]) + " and " + FAMILIES[-1]
 
 
 @dataclass(frozen=True)
@@ -70,6 +92,8 @@ class Plan:
     q_rows: Axes       # q's rows (the fallback), or neither: q whole
     kv_heads: Axes
     cache_seq: Axes    # the KV cache's sequence
+    moe_batch: Axes = ()   # moe: the routing groups' axes ("batch", None, None)
+    moe_group: int = 0     # moe: tokens per routing group
 
 
 def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
@@ -90,6 +114,9 @@ def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
                             ("batch", None, None, None))
               or resolve_first((B, KV, S, hd), (None, "kv_heads", None, None),
                                (None, None, None, None)))
+        if cfg.family == "moe":
+            G, Tg = MOE.groups(B * S)
+            gs = resolve_spec((G, Tg, d), "batch", None, None)
     p = Plan(batch=as_axes(xs[0]), seq=as_axes(xs[1]) if S > 1 else (),
              tok_seq=as_axes(tok_spec[1]) if tok_spec is not None and len(tok_spec) > 1
              else (),
@@ -97,6 +124,8 @@ def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
              q_rows=as_axes(qs[2]) if qs is not None and S > 1 else (),
              kv_heads=as_axes(ks[1]) if ks is not None and S > 1 else (),
              cache_seq=as_axes(cache_spec[3]) if cache_spec is not None else ())
+    if cfg.family == "moe":
+        p = dataclasses.replace(p, moe_batch=as_axes(gs[0]), moe_group=Tg)
     for what, spec in (("tokens", tok_spec), ("cache", cache_spec)):
         ax = () if spec is None else as_axes(spec[0 if what == "tokens" else 1])
         if spec is not None and ax != p.batch:
@@ -231,6 +260,47 @@ def _mlp(rk, p, ps, h, seq: Axes):
     return _row(rk, F.silu(g) * u, cols, p, ps, "w_down", seq)
 
 
+def _moe(rk, cfg: ModelConfig, pl: Plan, p, ps, h, seq: Axes, cf=None, *,
+         balance: bool = False):
+    """The moe block (`moe.moe_block`) of the rank's normalised rows h (b,
+    S, d), the whole sequence: (its output in the residual's layout over
+    `seq`, with `balance` the load-balance loss of every group, else None:
+    a step that does not train drops it, as XLA drops dead code).  The
+    router's columns give f32 logits all-gathered over its "model" axes,
+    so every rank routes (`moe.route_logits`, capacity factor `cf`) the
+    groups it holds whole: its own rows' where the groups are cut over the
+    batch axes as the rows are, else every row, gathered over the batch
+    axes.  The rank's experts run on its own rows' kept assignments
+    (`moe.expert_partial`); their f32 sums, rounded to h's dtype (the
+    reference's combine einsum yields it), are summed over the expert
+    axes onto the residual's sequence (`_reduce_to`): a reduce-scatter,
+    or, with the experts whole, a local cut.  The load-balance means are
+    psummed over the batch axes where each rank routed its own groups."""
+    b, S, d = h.shape
+    own = pl.moe_batch == pl.batch
+    xr = h if own else rk.all_gather(h, pl.batch, axis=0)
+    logits = torch.matmul(xr.reshape(-1, pl.moe_group, d).float(),
+                          _weight(rk, p["router"], ps["router"]).float())
+    r = MOE.route_logits(cfg, rk.all_gather(logits, _model(ps["router"][-1]), axis=-1),
+                         capacity_factor=cf)
+    experts = {k: _weight(rk, p[k], ps[k]) for k in ("w_gate", "w_up", "w_down")}
+    ea = _model(ps["w_gate"][0])
+    t0 = 0 if own else rk.index(pl.batch) * b * S
+    y = MOE.expert_partial(cfg, experts, r, xr.reshape(-1, d),
+                           e0=rk.index(ea) * experts["w_gate"].shape[0],
+                           tokens=(t0, t0 + b * S))
+    y = _reduce_to(rk, y.reshape(b, S, d).to(h.dtype), ea, seq)
+    if "shared" in p:
+        y = y + _mlp(rk, p["shared"], ps["shared"], h, seq)
+    if not balance:
+        return y, None
+    me, ce = MOE.balance_terms(cfg, r)
+    if own and pl.batch:
+        n = rk.size(pl.batch)
+        me, ce = rk.psum(me, pl.batch) / n, rk.psum(ce, pl.batch) / n
+    return y, cfg.num_experts * (me * ce).sum()
+
+
 def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
     """Prefill attention of the rank's normalised rows `h` (b, S, d), the
     whole sequence: (its output in the residual's layout, (K, V) as
@@ -257,8 +327,10 @@ def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
     k = L.rope(k.reshape(b, S, nkv, hd), positions, cfg.rope_theta)
     kh, vh = k.transpose(1, 2), v.reshape(b, S, nkv, hd).transpose(1, 2)
     ka, va = _kv_for(kh, vh, h0, nh, H // KV, rk.index(pl.kv_heads) * nkv)
+    # the reference's moe layer gives its attention no window
+    window = 0 if cfg.family == "moe" else cfg.sliding_window
     o = ops.attention(q.transpose(1, 2), ka, va, causal=True,
-                      sliding_window=cfg.sliding_window, q_offset=q0, impl=impl)
+                      sliding_window=window, q_offset=q0, impl=impl)
     o = o.transpose(1, 2).reshape(b, sq, nh * hd)
     if pl.q_rows:
         rows = _model(ps["wo"][0])
@@ -317,15 +389,22 @@ def _embed_rows(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any]):
     return _reduce_to(rk, e, va, pl.seq), tokens
 
 
-def _layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, positions, *, impl: str):
-    """One dense layer (`model._dense_layer`) on the rank's residual rows:
-    (x, the layer's (K, V) heads of the rank)."""
+def _layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, positions, *, impl: str,
+           balance: bool = False):
+    """One dense or moe layer (`model._dense_layer`, `_moe_layer`) on the
+    rank's residual rows: (x, the layer's (K, V) heads of the rank, with
+    `balance` moe's load-balance loss, else None).  moe routes with the
+    config's capacity factor, as the reference's prefill and train steps
+    do."""
     eps = cfg.norm_eps
     h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), p["ln1"], eps)
     h, kv = _attention(rk, cfg, pl, p["attn"], ps["attn"], h, positions, impl=impl)
     x = x + h
     h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), p["ln2"], eps)
-    return x + _mlp(rk, p["mlp"], ps["mlp"], h, pl.seq), kv
+    if cfg.family == "moe":
+        y, lb = _moe(rk, cfg, pl, p["moe"], ps["moe"], h, pl.seq, balance=balance)
+        return x + y, kv, lb
+    return x + _mlp(rk, p["mlp"], ps["mlp"], h, pl.seq), kv, None
 
 
 def prefill_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any],
@@ -336,7 +415,7 @@ def prefill_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any],
     b, S = x.shape[0], x.shape[1] * rk.size(pl.seq)
     positions = torch.arange(S, device=x.device)
     for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
-        x, (k, v) = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl)
+        x, (k, v), _ = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl)
         _write_prefix(rk, pl, cache["k"][li], k)
         _write_prefix(rk, pl, cache["v"][li], v)
     last = rk.all_gather(x[:, -1:], pl.seq, axis=1)[:, -1]
@@ -372,14 +451,22 @@ def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
     the largest divisor of S at or below `loss_chunk`, each under
     `rk.remat` (`_nll`); the sum and the count of valid labels psummed over
     the batch axes before the division.  A rank's labels are gathered over
-    their sequence axes (one sequence: every rank holds every row)."""
+    their sequence axes (one sequence: every rank holds every row).  moe
+    adds 0.01 x the mean over layers of each layer's load-balance loss
+    (`_moe`), which the remat returns beside the residual."""
     x, tokens = _embed_rows(rk, cfg, pl, p, ps, batch)
     S = x.shape[1] * rk.size(pl.seq)
     positions = torch.arange(S, device=x.device)
+    lbs = []
     for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
         def layer(rk, x, pl_=pl_, ps_=ps_):
-            return _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl)[0]
+            x, _, lb = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl,
+                              balance=True)
+            return x if lb is None else (x, lb)
         x = rk.remat(f"layer {li}", layer, x) if remat else layer(rk, x)
+        if cfg.family == "moe":
+            x, lb = x
+            lbs.append(lb)
     x = rk.all_gather(x, pl.seq, axis=1)[:, S - tokens.shape[1]:]
     logits = _lm_head(rk, cfg, p, ps, x)
     labels = batch.get("labels")
@@ -399,14 +486,16 @@ def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
                     if torch.is_grad_enabled() and lg.requires_grad else nll(rk, lg))
     total = rk.psum(torch.stack(sums).sum(), pl.batch)
     count = rk.psum((labels >= 0).sum(), pl.batch)
-    return total / count.clamp_min(1)
+    loss = total / count.clamp_min(1)
+    return loss + 0.01 * torch.stack(lbs).mean() if lbs else loss
 
 
 def serve_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, cache: Dict[str, Any],
                token: torch.Tensor, *, impl: str = "auto", ring_buffer: bool = False):
     """One rank's `model.decode_step`: (its (b, V / |vocab|) logits, its
     cache with the token's K/V written where its slice holds the position
-    and "len" advanced)."""
+    and "len" advanced).  moe routes the batch as one group (T = B) with
+    the capacity factor min(decode_capacity_factor, E)."""
     eps, theta = cfg.norm_eps, cfg.rope_theta
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     e, va = _embed(rk, cfg, p, ps, token)
@@ -415,6 +504,7 @@ def serve_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, cache: Dict[str, Any],
     clen = cache["len"]
     ca = pl.cache_seq
     window = 0 if ring_buffer else cfg.sliding_window
+    moe_cf = min(float(cfg.decode_capacity_factor), float(cfg.num_experts))
 
     def decode(mesh, q, k, v, lens):
         return distributed_decode_local(q, k, v, lens, mesh=mesh, seq_axes=ca,
@@ -439,6 +529,10 @@ def serve_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, cache: Dict[str, Any],
         else:
             o = ops.decode_attention(q, kc, vc, eff, sliding_window=window, impl=impl)
         x = x + _row(rk, o.reshape(b, H * hd), (), a, as_, "wo", ())
-        x = x + _mlp(rk, pl_["mlp"], ps_["mlp"], L.rms_norm(x, pl_["ln2"], eps), ())
+        h = L.rms_norm(x, pl_["ln2"], eps)
+        if cfg.family == "moe":
+            x = x + _moe(rk, cfg, pl, pl_["moe"], ps_["moe"], h[:, None], (), moe_cf)[0][:, 0]
+        else:
+            x = x + _mlp(rk, pl_["mlp"], ps_["mlp"], h, ())
     cache = dict(cache, len=clen + 1)
     return _lm_head(rk, cfg, p, ps, x), cache

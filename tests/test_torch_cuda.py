@@ -482,25 +482,18 @@ def test_ring_decode_on_card_matches_cpu(cuda):
     assert flash_decode.launches == before[1] + 6 * cfg.num_layers
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
-def test_partitioned_steps_on_card_match_cpu(cuda, shape):
-    """A reduced f32 dense model (8 q / 2 KV heads), 4 x 32 tokens into a
-    cache of 40 and 3 serve steps, partitioned over four ranks sharing the
-    card (B1 once per layer and rank, the plain distributed decode) against
-    the same four ranks on the CPU: logits and caches to 1e-4, the same
-    collective bytes."""
-    import dataclasses
-
-    from repro_torch.configs import get_config, reduced_config
+def _partitioned_serving(cuda, cfg, shape):
+    """A prefill of 4 x 32 tokens into a cache of 40 and 3 serve steps of
+    `cfg`, partitioned over four ranks sharing the card (B1 once per layer
+    and rank, the plain distributed decode) and over four CPU ranks: the
+    logits and caches to 1e-4, the same collective bytes, B1 and B2 counted
+    on the card."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import shardings as shd
     from repro_torch.launch import steps
     from repro_torch.launch.partition import shard_tree, unshard_tree
     from repro_torch.models import model as mdl
     from repro_torch.sp.common import GangMesh
-    cfg = dataclasses.replace(reduced_config(get_config("llama31_70b"), n_heads=8, n_kv=2),
-                              dtype="float32")
     params = mdl.init_params(cfg, seed=0, device="cpu")
     prompt = torch.randint(0, cfg.vocab_size, (4, 32),
                            generator=torch.Generator().manual_seed(7))
@@ -533,16 +526,38 @@ def test_partitioned_steps_on_card_match_cpu(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
-def test_partitioned_train_step_on_card_matches_cpu(cuda, shape):
-    """A reduced f32 dense model (8 q / 2 KV heads), two partitioned FSDP
-    train steps on 4 x 32 tokens over four ranks sharing the card against
-    the same four ranks on the CPU: loss and grad norm to 1e-5, the params
-    to 1e-4 but for AdamW's ±lr sign flips, the same collective bytes, no
-    kernel launched (the step differentiates the plain attention)."""
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_steps_on_card_match_cpu(cuda, shape):
+    """A reduced f32 dense model (8 q / 2 KV heads), 4 x 32 tokens into a
+    cache of 40 and 3 serve steps, partitioned over four ranks sharing the
+    card (B1 once per layer and rank, the plain distributed decode) against
+    the same four ranks on the CPU: logits and caches to 1e-4, the same
+    collective bytes."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced_config
+    _partitioned_serving(cuda, dataclasses.replace(
+        reduced_config(get_config("llama31_70b"), n_heads=8, n_kv=2), dtype="float32"), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_moe_steps_on_card_match_cpu(cuda, shape):
+    """The same for a reduced f32 olmoe-like model with 8 experts top-2 over
+    the model ranks (capacity factor 1.25: prefill assignments dropped)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    _partitioned_serving(cuda, dataclasses.replace(
+        reduced_config(get_config("olmoe_1b_7b"), experts=8), dtype="float32"), shape)
+
+
+def _partitioned_training(cuda, cfg, shape):
+    """Two partitioned FSDP train steps of `cfg` on 4 x 32 tokens over four
+    ranks sharing the card and over four CPU ranks: loss and grad norm to
+    1e-5, the params to 1e-4 but for AdamW's ±lr sign flips, the same
+    collective bytes, no kernel launched (the step differentiates the plain
+    attention)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import shardings as shd
     from repro_torch.launch import steps
@@ -550,8 +565,6 @@ def test_partitioned_train_step_on_card_matches_cpu(cuda, shape):
     from repro_torch.models import model as mdl
     from repro_torch.sp.common import GangMesh
     from repro_torch.training import adamw_init
-    cfg = dataclasses.replace(reduced_config(get_config("llama31_70b"), n_heads=8, n_kv=2),
-                              dtype="float32")
     params = mdl.init_params(cfg, seed=0, device="cpu")
     g = torch.Generator().manual_seed(7)
     batches = []
@@ -589,3 +602,30 @@ def test_partitioned_train_step_on_card_matches_cpu(cuda, shape):
         assert float((a - b).abs().max()) <= 2 * 3e-4 * 2
     assert got_c == want_c
     assert (flash_attention.launches, flash_decode.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_train_step_on_card_matches_cpu(cuda, shape):
+    """A reduced f32 dense model (8 q / 2 KV heads), two partitioned FSDP
+    train steps on 4 x 32 tokens over four ranks sharing the card against
+    the same four ranks on the CPU: loss and grad norm to 1e-5, the params
+    to 1e-4 but for AdamW's ±lr sign flips, the same collective bytes, no
+    kernel launched (the step differentiates the plain attention)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    _partitioned_training(cuda, dataclasses.replace(
+        reduced_config(get_config("llama31_70b"), n_heads=8, n_kv=2), dtype="float32"), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_moe_train_step_on_card_matches_cpu(cuda, shape):
+    """The same for a reduced f32 olmoe-like model with 8 experts top-2
+    (the loss with its load-balance term)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    _partitioned_training(cuda, dataclasses.replace(
+        reduced_config(get_config("olmoe_1b_7b"), experts=8), dtype="float32"), shape)

@@ -20,9 +20,9 @@ full width: shapes only, on the meta device.
   for every family at reduced width;
 * the matrix: the skip set is the reference's `supports_shape` (66 run,
   14 skipped), one shape per arch runs OK on both production meshes, the
-  dense and vlm archs with their collective bytes, train's too (the
-  full matrix takes more than a minute on one core: it runs in
-  `chip_smoke.py`'s dryrun phase and `python -m
+  partitioned families' archs (`tp.FAMILIES`) with their collective
+  bytes, train's too (the full matrix takes more than a minute on one
+  core: it runs in `chip_smoke.py`'s dryrun phase and `python -m
   repro_torch.launch.dryrun_all`), and the CLIs write their records.
 """
 import contextlib
@@ -46,7 +46,8 @@ from repro_torch.launch import dryrun, dryrun_all
 from repro_torch.launch import shardings as shd
 from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import init_params
+from repro_torch.models import init_params, tp
+from repro_torch.training import optimizer as opt
 
 torch.set_num_threads(1)
 
@@ -194,11 +195,45 @@ def _reduced(arch, units):
     return cut(units)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_train_account_extrapolates_exactly(arch):
+def _factoring_switch(cfg, monkeypatch):
+    """FACTOR_THRESHOLD patched between the stacked sizes at 3 and at 5
+    units of cfg's largest 2-D per-layer leaf: whole at 3 units, factored
+    at cfg's 5 (the 2- and 3-unit runs must carry the moments of 5)."""
+    _, cut = dryrun._units(cfg)
+    layers = st.params_structs(cfg)["layers"]
+    per_unit = len(layers) // 5
+    n, path = max((x.numel(), path) for path, x in _leaves(layers[0]) if x.dim() == 2)
+    monkeypatch.setattr(opt, "FACTOR_THRESHOLD", n * 4 * per_unit)
+    for units, factored in ((3, False), (5, True)):
+        moments = st.opt_structs(st.params_structs(cut(units))).moments["layers"][0]
+        for c in path:
+            moments = moments[c]
+        assert ("vr" in moments) == factored, (units, path)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in _leaves(v, path + (k,))]
+    return [(path, tree)]
+
+
+@pytest.mark.parametrize("arch,switch", [pytest.param(a, False, id=a) for a in FAMILIES]
+                         + [pytest.param(a, True, id=f"{a}-factoring-switch")
+                            for a in FAMILIES])
+def test_train_account_extrapolates_exactly(arch, switch, monkeypatch):
+    """The account at 5 units, run at 2 and 3 and extrapolated, equals a run
+    at 5; with `switch` also where the optimizer factors a leaf at 5 units
+    and not at 3 (`_factoring_switch`)."""
     cfg = _reduced(arch, 5)
     shape = ShapeConfig("t", 128, 2, "train")
-    got = dryrun.step_account(cfg, shape)
+    if switch:
+        _factoring_switch(cfg, monkeypatch)
+        dryrun.step_account.cache_clear()      # keyed by (cfg, shape) alone
+    try:
+        got = dryrun.step_account(cfg, shape)
+    finally:
+        if switch:
+            dryrun.step_account.cache_clear()
     assert got["units"] == 5 and got["units_run"] == [2, 3]
     want = dryrun._run(cfg, shape)
     for k in ("temp", "new_out", "flops", "bytes"):
@@ -290,12 +325,13 @@ TRAIN_SMALL = ShapeConfig("train_256", 256, 256, "train")
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_matrix_decode_combo_runs_on_both_meshes(arch):
     """The decode_32k record on both production meshes, and a train
-    record: the dense and vlm families' collective bytes by kind (counted
-    by the partitioned steps: tests/test_torch_partition.py and
-    tests/test_torch_partition_train.py), the others' null with a reason."""
+    record: the partitioned families' (`tp.FAMILIES`) collective bytes by
+    kind (counted by the partitioned steps: tests/test_torch_partition.py,
+    tests/test_torch_partition_train.py, tests/test_torch_partition_moe.py),
+    the others' null with a reason."""
     kinds = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
              "collective-permute", "total"}
-    partitioned = get_config(arch).family in ("dense", "vlm")
+    partitioned = get_config(arch).family in tp.FAMILIES
     for mp, n in ((False, 256), (True, 512)):
         rec = dryrun.run_combo(arch, "decode_32k", multi_pod=mp)
         assert rec["ok"] and rec["n_devices"] == n

@@ -22,9 +22,10 @@ reduced f32 configs, the reference's weights bridged.
   (1, 4) of four of them for its own collective bytes.
 * The collective bytes the mesh counts: a closed form per layer on (2, 2)
   and (1, 4), and the dry run's count on meta ranks equal to the CPU
-  ranks' for the same combo; the dry run's dense and vlm records carry
-  them (train too: tests/test_torch_partition_train.py), the other
-  families' records a reason.
+  ranks' for the same combo; the dry run's dense, vlm and moe records
+  carry them (train too: tests/test_torch_partition_train.py; the moe
+  steps: tests/test_torch_partition_moe.py), the other families' records
+  a reason, and their steps raise on `Sharded` arguments.
 
 The partitioned steps on the card against the CPU ranks' are in
 tests/test_torch_cuda.py, which imports no JAX.
@@ -32,7 +33,8 @@ tests/test_torch_cuda.py, which imports no JAX.
     PYTHONPATH=src python tests/test_torch_partition.py --bytes
 
 prints the reference's collective bytes beside the port's for the reduced
-dense prefill and serve step on (2, 2) and (1, 4).
+dense prefill and serve step and the reduced moe prefill (8 experts) on
+(2, 2) and (1, 4).
 """
 import dataclasses
 import json
@@ -83,6 +85,9 @@ CONFIGS = {
     "vlm": ("internvl2_76b", dict(layers=2), 56),
     "swa": ("llama3_8b", dict(layers=2), 64),
     "phi3": ("phi3_14b", dict(layers=2, d_model=320, n_heads=40, n_kv=10), 40),
+    # tests/test_torch_partition_moe.py's olmoe-like config (8 experts), whose
+    # prefill `--bytes` compiles in the reference
+    "moe": ("olmoe_1b_7b", dict(layers=2, experts=8), 40),
 }
 MESHES = [(1, 4), (2, 2), (4, 1), (2, 4), (1, 8)]
 
@@ -379,17 +384,22 @@ def test_lockstep_raises_on_a_rank_that_raises_or_strays():
         run_lockstep(mesh, broken)
 
 
-def test_other_families_are_not_partitioned(models):
-    cfg = dataclasses.replace(reduced_config(get_config("olmoe_1b_7b")), dtype="float32")
+@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_2_7b", "seamless_m4t_large_v2"])
+def test_other_families_are_not_partitioned(arch, models):
+    """The families with no partitioned step yet (ssm, hybrid, audio) raise
+    on `Sharded` arguments (the moe family's: tests/test_torch_partition_moe.py)."""
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
     mesh = _mesh((2, 2))
     params = mdl.init_params(cfg, device="cpu")
     pre = ShapeConfig("p", 32, 4, "prefill")
-    cache = mdl.init_cache(cfg, 4, 32, device="cpu")
+    cache = steps.cache_structs(cfg, pre)
+    cache = shd.walk(lambda path, x, n: torch.zeros(x.shape, dtype=x.dtype), cache)
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+             for k, v in steps.batch_structs(cfg, pre).items()}
     args = (shard_tree(params, shd.param_specs(cfg, params, mesh, fsdp=False), mesh),
-            shard_tree({"tokens": torch.zeros(4, 32, dtype=torch.long)},
-                       shd.batch_specs(cfg, pre, mesh), mesh),
+            shard_tree(batch, shd.batch_specs(cfg, pre, mesh), mesh),
             shard_tree(cache, shd.cache_specs(cfg, cache, mesh, global_batch=4), mesh))
-    with pytest.raises(NotImplementedError, match="dense and vlm"):
+    with pytest.raises(NotImplementedError, match=f"not {cfg.family}"):
         steps.build_prefill_step(cfg, pre)(*args)
 
 
@@ -465,15 +475,15 @@ def test_meta_rank_count_equals_cpu_ranks(name, shape, kind, models):
 def test_dry_run_records_carry_collective_bytes():
     for arch, shape in (("llama3_8b", "prefill_32k"), ("qwen2_7b", "prefill_32k"),
                         ("internvl2_76b", "decode_32k"), ("llama3_8b", "long_500k"),
-                        ("llama3_8b", "train_4k")):
+                        ("llama3_8b", "train_4k"), ("olmoe_1b_7b", "train_4k"),
+                        ("olmoe_1b_7b", "decode_32k")):
         rec = dryrun.run_combo(arch, shape)
         assert rec["ok"] and set(rec["collectives"]) == set(KINDS) | {"total"}
         assert rec["collectives"]["total"] > 0 and "collectives_reason" not in rec
     # the 28 heads of qwen2 on 16 model ranks take the sequence fallback: an
     # all-to-all moves q's rows (and wo's inputs back)
     assert dryrun.run_combo("qwen2_7b", "prefill_32k")["collectives"]["all-to-all"] > 0
-    for arch, shape in (("olmoe_1b_7b", "train_4k"), ("olmoe_1b_7b", "decode_32k"),
-                        ("mamba2_130m", "prefill_32k")):
+    for arch, shape in (("mamba2_130m", "prefill_32k"),):
         rec = dryrun.run_combo(arch, shape)
         assert rec["collectives"] is None
         assert "not ported yet" in rec["collectives_reason"]
@@ -484,10 +494,11 @@ PSUM_SCATTER = {"data_dim1": ("data", 1), "model_dim1": ("model", 1),
                 "model_dim2": ("model", 2), "both_dim1": (("data", "model"), 1)}
 
 
-def _jax_outputs(path):
+def _jax_outputs(path, moe=False):
     """psum_scatter of jax.lax on a (4, 2) mesh, and the reference's
-    collective bytes of its partitioned dense prefill and serve step on
-    (2, 2) and (1, 4) meshes of four devices; needs 8 XLA devices."""
+    collective bytes of its partitioned dense prefill and serve step (with
+    `moe`, also of the moe config's prefill) on (2, 2) and (1, 4) meshes of
+    four devices; needs 8 XLA devices."""
     from jax.sharding import Mesh, NamedSharding
     from jax.sharding import PartitionSpec as P
 
@@ -504,30 +515,32 @@ def _jax_outputs(path):
         out[name] = np.asarray(jcommon.shard_map(
             fn, mesh=mesh, in_specs=(P(("data", "model")),),
             out_specs=P(("data", "model")), check_vma=False)(x))
-    jcfg, _ = _configs("dense")
-    pre, dec = _shapes(B, PROMPT, "dense")
-    s_max = CONFIGS["dense"][2]
-    params = jax.eval_shape(lambda: jmdl.init_params(jax.random.PRNGKey(0), jcfg))
-    cache = jax.eval_shape(lambda: jmdl.init_cache(jcfg, B, s_max))
-    batch = {"tokens": jax.ShapeDtypeStruct((B, PROMPT), jnp.int32)}
     ref = {}
-    for shape in ((2, 2), (1, 4)):
-        m = Mesh(np.array(jax.devices()[:4]).reshape(shape), ("data", "model"))
-        p_sh = jshd.to_shardings(m, jshd.param_specs(jcfg, params, m, fsdp=False))
-        c_sh = jshd.to_shardings(m, jshd.cache_specs(jcfg, cache, m, global_batch=B))
-        b_sh = {k: NamedSharding(m, v) for k, v in jshd.batch_specs(jcfg, pre, m).items()}
-        t_sh = NamedSharding(m, jshd.batch_specs(jcfg, dec, m)["token"])
-        with m:
-            f_pre = jax.jit(jst.build_prefill_step(jcfg, pre, mesh=m),
-                            in_shardings=(p_sh, b_sh, c_sh), out_shardings=(None, c_sh))
-            f_dec = jax.jit(jst.build_serve_step(jcfg, dec, mesh=m),
-                            in_shardings=(p_sh, c_sh, t_sh), out_shardings=(None, c_sh))
-            tag = f"{shape[0]}x{shape[1]}"
-            ref[f"prefill_{tag}"] = collective_bytes_from_hlo(
-                f_pre.lower(params, batch, cache).compile().as_text())
-            ref[f"serve_{tag}"] = collective_bytes_from_hlo(
-                f_dec.lower(params, cache, jax.ShapeDtypeStruct((B,), jnp.int32))
-                .compile().as_text())
+    for name in ("dense", "moe") if moe else ("dense",):
+        jcfg, _ = _configs(name)
+        pre, dec = _shapes(B, PROMPT, name)
+        s_max = CONFIGS[name][2]
+        params = jax.eval_shape(lambda: jmdl.init_params(jax.random.PRNGKey(0), jcfg))
+        cache = jax.eval_shape(lambda: jmdl.init_cache(jcfg, B, s_max))
+        batch = {"tokens": jax.ShapeDtypeStruct((B, PROMPT), jnp.int32)}
+        for shape in ((2, 2), (1, 4)):
+            m = Mesh(np.array(jax.devices()[:4]).reshape(shape), ("data", "model"))
+            p_sh = jshd.to_shardings(m, jshd.param_specs(jcfg, params, m, fsdp=False))
+            c_sh = jshd.to_shardings(m, jshd.cache_specs(jcfg, cache, m, global_batch=B))
+            b_sh = {k: NamedSharding(m, v) for k, v in jshd.batch_specs(jcfg, pre, m).items()}
+            t_sh = NamedSharding(m, jshd.batch_specs(jcfg, dec, m)["token"])
+            tag = f"{shape[0]}x{shape[1]}" + ("" if name == "dense" else f"_{name}")
+            with m:
+                f_pre = jax.jit(jst.build_prefill_step(jcfg, pre, mesh=m),
+                                in_shardings=(p_sh, b_sh, c_sh), out_shardings=(None, c_sh))
+                ref[f"prefill_{tag}"] = collective_bytes_from_hlo(
+                    f_pre.lower(params, batch, cache).compile().as_text())
+                if name == "dense":
+                    f_dec = jax.jit(jst.build_serve_step(jcfg, dec, mesh=m),
+                                    in_shardings=(p_sh, c_sh, t_sh), out_shardings=(None, c_sh))
+                    ref[f"serve_{tag}"] = collective_bytes_from_hlo(
+                        f_dec.lower(params, cache, jax.ShapeDtypeStruct((B,), jnp.int32))
+                        .compile().as_text())
     out["reference_bytes"] = np.frombuffer(json.dumps(ref).encode(), np.uint8)
     np.savez(path, x=x, **out)
 
@@ -574,19 +587,22 @@ def main(argv):
                    PYTHONPATH=str(ROOT / "src"))
         path = ROOT / "build" / "partition_reference.npz"
         path.parent.mkdir(exist_ok=True)
-        subprocess.run([sys.executable, __file__, str(path)], env=env, check=True)
+        subprocess.run([sys.executable, __file__, str(path), "--moe"], env=env, check=True)
         ref = json.loads(np.load(path)["reference_bytes"].tobytes())
-        _, cfg = _configs("dense")
-        pre, dec = _shapes(B, PROMPT, "dense")
-        for shape in ((2, 2), (1, 4)):
-            mesh, tag = _mesh(shape), f"{shape[0]}x{shape[1]}"
-            port = {"prefill": dryrun.collective_bytes(cfg, pre, mesh, max_len=CONFIGS["dense"][2]),
-                    "serve": dryrun.collective_bytes(cfg, dec, mesh)}
-            for step in ("prefill", "serve"):
-                print(json.dumps({"mesh": tag, "step": step, "reference": ref[f"{step}_{tag}"],
-                                  "port": port[step]}))
+        for name, kinds in (("dense", ("prefill", "serve")), ("moe", ("prefill",))):
+            _, cfg = _configs(name)
+            pre, dec = _shapes(B, PROMPT, name)
+            for shape in ((2, 2), (1, 4)):
+                mesh = _mesh(shape)
+                tag = f"{shape[0]}x{shape[1]}" + ("" if name == "dense" else f"_{name}")
+                port = {"prefill": dryrun.collective_bytes(cfg, pre, mesh,
+                                                           max_len=CONFIGS[name][2]),
+                        "serve": dryrun.collective_bytes(cfg, dec, mesh)}
+                for step in kinds:
+                    print(json.dumps({"config": name, "mesh": tag, "step": step,
+                                      "reference": ref[f"{step}_{tag}"], "port": port[step]}))
         return 0
-    _jax_outputs(argv[0])
+    _jax_outputs(argv[0], moe="--moe" in argv)
     return 0
 
 
