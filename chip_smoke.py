@@ -138,7 +138,7 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                sharding rules (``launch/partition.py``, ``models/tp.py``)
                on (data, model) meshes whose ranks share the card, from
                shards of the same weights (views): llama31_70b at full
-               width and PARTITION_LAYERS of 80 layers on (1, 4) and
+               width and PARTITION_LAYERS (8) of 80 layers on (1, 4) and
                (2, 2), 4 x 2048 prompt tokens into a cache of 2080 and 32
                serve steps, against the unpartitioned steps (B1, B2) — bf16
                within PARTITION_REL_TOL with the same first token (a
@@ -172,7 +172,8 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
 22. partition_moe — the moe family's partitioned steps, its experts over
                "model" (``models/tp._moe``), on [card] x 4 from shards of one
                set of random bf16 weights: olmoe_1b_7b at full width and
-               depth (64 experts top-8) on (1, 4) and (2, 2), a prefill of
+               PM_LAYERS (4) of 16 layers (64 experts top-8) on (1, 4) and
+               (2, 2), a prefill of
                4 x 2048 into a cache of 2080 and 32 serve steps, held as
                ``partition`` holds its runs against the unpartitioned steps
                (B1, B2) routed as the partitioned run was (each token's
@@ -195,11 +196,42 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                the load-balance loss, the router's gradient among the
                leaves, the whole-tensor gradients and f32 steps routed as
                the partitioned ones were), over (1, 4), (2, 2) and (4, 1),
-               f32 at PM_TRAIN_F32_LAYERS.
+               f32 at PM_TRAIN_F32_LAYERS;
+23. partition_ssm — the ssm and hybrid families' partitioned steps
+               (``models/tp._mamba``: in_proj, the conv and the gate over
+               the whole gathered sequence on every model rank, the scan
+               over the rank's heads or rows; the hybrid's shared block
+               tensor-parallel) on ranks sharing the card, from shards of
+               one set of random weights: mamba2_130m and zamba2_2_7b at
+               full width and depth in bf16 on (1, 4) and (2, 2) (B3 on 6
+               / 20 heads per rank on (1, 4)), a prefill of 4 x 2048 into a
+               cache of 2080 and PS_STEPS serve steps, against the
+               unpartitioned steps (B3, B1, B2): prefill logits, the conv
+               state and the shared block's K/V per (layer, row, head), the
+               SSM state per (layer, row) (bf16: within the larger of the
+               limit and the plain versions' unpartitioned prefill's own
+               reading, the yardstick of one more rounding; per head
+               reported) and each serve step's logits within
+               PARTITION_REL_TOL (the first token reported), B3 exactly
+               layers x ranks and B1 shared-block uses x ranks per
+               prefill, no kernel in a serve step, the collective bytes
+               equal to the dry run's, the last rank's heads dropped from
+               y's all-gather reading above the limit; f32 at
+               PS_F32_LAYERS within PARTITION_F32_TOL with every greedy
+               token; mamba2_130m's 24 heads on (1, 16) (the dry run's
+               pod16x16 case: each rank scans 128 rows from a zero state
+               and adds the state entering them) at PS_ROWS_LAYERS in
+               bf16 and f32, the entering state dropped reading above the
+               limit; the FSDP train step as ``partition_train`` holds
+               mistral_7b's, zamba2_2_7b at PS_TRAIN_LAYERS (one segment
+               under one remat) with in_proj's gradient sum over "model"
+               dropping the last rank's partial reading above the limit on
+               (1, 4), and mamba2_130m at PS_SSM_TRAIN_LAYERS.
 
 Then one JSON line with every kernel's numbers (launches summed over the
 serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring, gang,
-dryrun, partition and partition_moe phases; the train phases launch none)
+dryrun, partition, partition_moe and partition_ssm phases; the train
+phases launch none)
 and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
@@ -270,7 +302,9 @@ SHARDED_FAULT_STEPS = 4
 #: PARTITION_MESHES (data, model) on ranks that share the card; f32 at
 #: PARTITION_F32_LAYERS.  qwen2_7b's 28 heads on (1, 8) take the rules'
 #: sequence fallback at PARTITION_F32_LAYERS layers
-PARTITION_LAYERS, PARTITION_F32_LAYERS = 24, 4
+#: (bf16 at 8 of 80 layers: cut from 24 to keep the script within its time
+#: limit once partition_ssm runs)
+PARTITION_LAYERS, PARTITION_F32_LAYERS = 8, 4
 PARTITION_BATCH, PARTITION_PROMPT, PARTITION_STEPS = 4, 2048, 32
 PARTITION_CACHE = PARTITION_PROMPT + PARTITION_STEPS
 PARTITION_MESHES = ((1, 4), (2, 2))
@@ -292,22 +326,38 @@ PARTITION_FAULT_STEPS = 2
 #: update runs in place; the whole-tensor step alone peaks at 48.4 GB at
 #: 32 layers), PT_BATCH x PT_SEQ tokens, remat, partitioned over each of
 #: PT_MESHES (data, model) on ranks that share the card; f32 at
-#: PT_F32_LAYERS, two steps
-PT_LAYERS, PT_F32_LAYERS = 8, 2
+#: PT_F32_LAYERS, two steps (bf16 at 4 layers: cut from 8, as
+#: PARTITION_LAYERS is, to keep the script within its time limit)
+PT_LAYERS, PT_F32_LAYERS = 4, 2
 PT_BATCH, PT_SEQ = 4, 2048
 PT_MESHES = ((1, 4), (2, 2), (4, 1))
 #: partition_train: bf16 loss against the whole-tensor step's, relative
 PT_LOSS_TOL = 1e-2
-#: partition_moe: olmoe_1b_7b's serving run at full depth on PM_MESHES (f32
-#: at PM_F32_LAYERS), llama4_maverick_400b_a17b's at PM_LLAMA4_LAYERS of 48
-#: (~37 GB in bf16) on (1, 4), olmoe's train step at PM_TRAIN_LAYERS of 16
-#: (f32 at PM_TRAIN_F32_LAYERS) on PT_MESHES; the PARTITION_* shapes.  The
-#: train step is cut to 4 layers for the script's time: at 8 it took 276 s
-#: of the phase's 451 s on the card (H100 80GB HBM3, 700 W)
+#: partition_moe: olmoe_1b_7b's serving run at PM_LAYERS of 16 on PM_MESHES
+#: (f32 at PM_F32_LAYERS), llama4_maverick_400b_a17b's at PM_LLAMA4_LAYERS
+#: of 48 (~37 GB in bf16) on (1, 4), olmoe's train step at PM_TRAIN_LAYERS
+#: of 16 (f32 at PM_TRAIN_F32_LAYERS) on PT_MESHES; the PARTITION_* shapes.
+#: Depth is cut for the script's time limit, as PARTITION_LAYERS is: the
+#: serving run from 16 layers and the train step from 4 (at 8 it took 276 s
+#: of the phase's 451 s on the card, H100 80GB HBM3, 700 W)
 PM_MESHES = ((1, 4), (2, 2))
-PM_F32_LAYERS, PM_LLAMA4_LAYERS = 4, 1
-PM_TRAIN_LAYERS, PM_TRAIN_F32_LAYERS = 4, 2
+PM_LAYERS, PM_F32_LAYERS, PM_LLAMA4_LAYERS = 4, 4, 1
+PM_TRAIN_LAYERS, PM_TRAIN_F32_LAYERS = 2, 2
 #: peak GB measured by the train, vlm and ring phases, read by dryrun
+#: partition_ssm: mamba2_130m at full depth and zamba2_2_7b at full width
+#: and depth (54 layers, 9 shared-block uses) in bf16 on PM_MESHES, the
+#: PARTITION_* shapes; f32 at PS_F32_LAYERS (zamba2: one segment);
+#: mamba2_130m's 24 heads on (1, 16), the rules' sequence fallback (the
+#: dry run's pod16x16 case), at PS_ROWS_LAYERS in bf16 and f32; the FSDP
+#: train step of zamba2 at PS_TRAIN_LAYERS (one segment) and of mamba2_130m
+#: at PS_SSM_TRAIN_LAYERS of 24 on PT_MESHES, f32 at the least depth
+#: (zamba2 6, mamba2_130m 1)
+PS_F32_LAYERS = {"mamba2_130m": 4, "zamba2_2_7b": 6}
+#: serve steps per run (a partitioned zamba2 step takes ~1.2 s of host time
+#: on the shared card)
+PS_STEPS = 8
+PS_ROWS_MESH, PS_ROWS_LAYERS = (1, 16), 4
+PS_TRAIN_LAYERS, PS_SSM_TRAIN_LAYERS = 6, 8
 PEAK_GB = {}
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 BF16_FLOPS = 989e12
@@ -515,7 +565,8 @@ def phase_kernels(torch, dev):
     # qwen2_7b's last of 8 ranks in the sequence fallback (256 query rows at
     # q_offset 1792 against all 2048 keys, 28 q / 4 KV heads); the
     # partitioned moe prefill's on 4 model ranks: olmoe_1b_7b (MHA 4) and
-    # llama4_maverick_400b_a17b (10 q / 2 KV heads).
+    # llama4_maverick_400b_a17b (10 q / 2 KV heads); the partitioned hybrid
+    # prefill's shared block on 4 model ranks: zamba2_2_7b (MHA 8, D 80).
     # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
@@ -544,6 +595,8 @@ def phase_kernels(torch, dev):
             ("fa_partition_moe_olmoe_mha4_causal_2048", PARTITION_BATCH, 4, 4, 128,
              PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True),
             ("fa_partition_moe_llama4_10q2kv_causal_2048", PARTITION_BATCH, 10, 2, 128,
+             PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True),
+            ("fa_partition_zamba2_mha8_d80_causal_2048", PARTITION_BATCH, 8, 8, 80,
              PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
@@ -705,8 +758,10 @@ def _edge_cases(torch, dev, g, rn):
 
 def _ssd_cases(torch, dev, g, cases, rows):
     """B3 at both models' prefill shapes (4 x 2048), at the models' own
-    chunks, with a ragged length, and one 16384-token prompt alone; y and
-    the final state checked as `checks.ssd_check` says, then timed."""
+    chunks, with a ragged length, one 16384-token prompt alone, and at the
+    partitioned prefill's per-rank shapes (a rank's 6 / 20 heads on 4 model
+    ranks; mamba2_130m's 128 rows on 16, from a zero state); y and the
+    final state checked as `checks.ssd_check` says, then timed."""
     from repro_torch.kernels.checks import ssd_check, ssd_inputs
     from repro_torch.kernels.ssd_kernel import chunk_len, ssd_scan, torch_ssd_scan
     for name, b, nh, hd, ns, chunk, s, init in (
@@ -714,7 +769,10 @@ def _ssd_cases(torch, dev, g, cases, rows):
             ("ssd_zamba2_b4_s2048", 4, 80, 64, 64, 64, 2048, False),
             ("ssd_mamba2_130m_b4_s2000_ragged", 4, 24, 64, 128, 256, 2000, False),
             # one long prompt prefilled alone, the traffic PecSched preempts for
-            ("ssd_mamba2_130m_b1_s16384", 1, 24, 64, 128, 256, 16384, True)):
+            ("ssd_mamba2_130m_b1_s16384", 1, 24, 64, 128, 256, 16384, True),
+            ("ssd_partition_mamba2_130m_6h_b4_s2048", 4, 6, 64, 128, 256, 2048, False),
+            ("ssd_partition_zamba2_20h_b4_s2048", 4, 20, 64, 64, 64, 2048, False),
+            ("ssd_partition_rows16_mamba2_130m_b4_s128", 4, 24, 64, 128, 256, 128, False)):
         xbc, x, dt, A, B, C, D, h0 = ssd_inputs(b, s, nh, hd, ns, init=init,
                                                 generator=g, device=dev)
         kw = dict(chunk=chunk, init_state=h0, return_state=True)
@@ -2393,7 +2451,9 @@ def phase_partition(torch, dev, smi):
         for k, v in counts.items():
             launches[k] += v
     _say("partition", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
-         f32_tol=PARTITION_F32_TOL, runs=runs, launches=launches,
+         f32_tol=PARTITION_F32_TOL,
+         cut=f"llama31_70b {PARTITION_LAYERS} of 80 layers in bf16, {PARTITION_F32_LAYERS} "
+         f"in f32; qwen2_7b and phi3_14b {PARTITION_F32_LAYERS}", runs=runs, launches=launches,
          phase_s=time.perf_counter() - t0)
     return launches
 
@@ -2431,12 +2491,15 @@ def _pt_shards(cfg, params, mesh, clone):
                  moments_gb=shd.per_device_bytes(opt, ospecs, mesh) / 1e9))
 
 
-def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True):
+def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
+             model_psum_fault=None):
     """The partitioned FSDP train step of `arch` at full width against the
     whole-tensor step from the same weights (module doc, 21): bf16 at
     `layers` on each of `meshes` (the fault on (4, 1); with `profile` one
-    more step profiled), f32 at `f32_layers`, two steps each; returns
-    {"<arch>_bf16", "<arch>_f32"}."""
+    more step profiled; with `model_psum_fault` a leaf name, on (1, 4) the
+    last model rank's partial dropped from that leaf's gradient sum over
+    "model", `_dropping_model_partial`), f32 at `f32_layers`, two steps
+    each; returns {"<arch>_bf16", "<arch>_f32"}."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2552,6 +2615,20 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True):
             if min(touched) <= PARTITION_REL_TOL:
                 fails.append(f"a gradient reduce-scatter without the last rank's partial "
                              f"reads {min(touched):.3e}, inside the limit")
+        if model_psum_fault and mshape == (1, 4):
+            leaf = next(t for path, t in _spec_leaves(p.local[0])
+                        if path[-1] == model_psum_fault)
+            with _dropping_model_partial(tuple(leaf.shape)):
+                _, fg = partition.loss_and_grads(cfg, p, b)
+            ferrs = _grad_errs(partition.unshard_tree(fg), w_grads)
+            del fg
+            hit = [e for e, (path, _) in zip(ferrs, _spec_leaves(p.specs))
+                   if path[-1] == model_psum_fault]
+            row[f"dropped_{model_psum_fault}_partial_rel_err_min"] = min(hit)
+            row[f"dropped_{model_psum_fault}_partial_leaves"] = len(hit)
+            if min(hit) <= PARTITION_REL_TOL:
+                fails.append(f"{model_psum_fault}'s gradient without the last model rank's "
+                             f"partial reads {min(hit):.3e}, inside the limit")
         bf16[tag] = row
         del p, b
         torch.cuda.empty_cache()
@@ -2636,13 +2713,10 @@ def phase_partition_moe(torch, dev, smi):
     t0 = time.perf_counter()
     runs, launches = {}, dict.fromkeys(_counters(), 0)
     for name, arch, layers, dtype, meshes in (
-            ("olmoe_1b_7b_bf16", "olmoe_1b_7b", None, "bfloat16", PM_MESHES),
+            ("olmoe_1b_7b_bf16", "olmoe_1b_7b", PM_LAYERS, "bfloat16", PM_MESHES),
             ("olmoe_1b_7b_f32", "olmoe_1b_7b", PM_F32_LAYERS, "float32", PM_MESHES),
             ("llama4_maverick_400b_a17b_bf16", "llama4_maverick_400b_a17b",
              PM_LLAMA4_LAYERS, "bfloat16", ((1, 4),))):
-        if layers is None:
-            from repro_torch.configs import get_config
-            layers = get_config(arch).num_layers
         runs[name], counts = _partition_case(torch, dev, arch, layers, dtype, meshes)
         for k, v in counts.items():
             launches[k] += v
@@ -2651,9 +2725,324 @@ def phase_partition_moe(torch, dev, smi):
     _say("partition_moe", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
          f32_tol=PARTITION_F32_TOL, loss_tol=PT_LOSS_TOL,
          cut=f"llama4_maverick_400b_a17b {PM_LLAMA4_LAYERS} of 48 layers; olmoe_1b_7b's "
-         f"train step {PM_TRAIN_LAYERS} of 16 (f32 {PM_TRAIN_F32_LAYERS}), its f32 serving "
+         f"bf16 serving run {PM_LAYERS} of 16, its train step {PM_TRAIN_LAYERS} of 16 (f32 {PM_TRAIN_F32_LAYERS}), its f32 serving "
          f"run {PM_F32_LAYERS}", runs=runs, launches=launches,
          phase_s=time.perf_counter() - t0)
+    return launches
+
+
+@contextlib.contextmanager
+def _dropping_model_partial(shape):
+    """Within: a gradient sum over "model" of a leaf of `shape`
+    (`partition.loss_and_grads` psums it with grad mode off) leaves out the
+    last model rank's partial."""
+    from repro_torch.launch import partition
+    psum = partition.Rank.psum
+
+    def dropping(self, x, axes):
+        if (not x.requires_grad and tuple(x.shape) == shape and "model" in axes
+                and self.index("model") == self.size("model") - 1):
+            x = x.new_zeros(x.shape)
+        return psum(self, x, axes)
+    partition.Rank.psum = dropping
+    try:
+        yield
+    finally:
+        partition.Rank.psum = psum
+
+
+@contextlib.contextmanager
+def _dropping_heads(cfg, mesh):
+    """Within: the scan of the last model rank's heads gives y zeroed, so
+    y's all-gather over the heads lacks them."""
+    from repro_torch.models import mamba2
+    scan = mamba2.mamba2_scan
+    last = cfg.ssm_heads - cfg.ssm_heads // mesh.axis_size("model")
+
+    def dropping(*a, heads=None, **kw):
+        y, h = scan(*a, heads=heads, **kw)
+        return (y.new_zeros(y.shape) if heads and heads[0] == last else y), h
+    mamba2.mamba2_scan = dropping
+    try:
+        yield
+    finally:
+        mamba2.mamba2_scan = scan
+
+
+@contextlib.contextmanager
+def _dropping_entering_state():
+    """Within: the sequence fallback's ranks keep their rows' scan from a
+    zero state (`mamba2.enter_state` adds nothing)."""
+    from repro_torch.models import mamba2
+    enter = mamba2.enter_state
+    mamba2.enter_state = lambda y, *a: y
+    try:
+        yield
+    finally:
+        mamba2.enter_state = enter
+
+
+def _layer_rows_err(torch, cfg, params, mesh, pl, x):
+    """Layer 0's Mamba2 block (`tp._mamba`) on every rank of `mesh` from
+    one input x (B, S, d), the ranks' rows joined, against the whole
+    layer's output (`model._mamba_layer`, B3): the largest ||got - want|| /
+    ||want|| over the (batch, position) rows.  A row's output depends on
+    the state entering its rank's piece, which a fast decay forgets within
+    a few rows: the last token's logits cannot see that state, the first
+    rows of every piece can."""
+    from repro_torch.launch import partition
+    from repro_torch.launch import shardings as shd
+    from repro_torch.kernels.checks import rel_err
+    from repro_torch.models import model as mdl
+    from repro_torch.models import tp
+    specs = shd.param_specs(cfg, params, mesh, fsdp=False)
+    p = partition.shard_tree(params, specs, mesh)
+    with torch.no_grad():
+        want, _ = mdl._mamba_layer(cfg, params["layers"][0], x, impl="auto",
+                                   write_cache=False)
+        outs = partition.run_lockstep(mesh, lambda rk: tp._mamba(
+            rk, cfg, pl, p.local[rk.rank]["layers"][0], specs["layers"][0],
+            rk.local(rk.local(x, 0, pl.batch), 1, pl.seq), impl="auto")[0])
+    got = partition._join(shd.P(pl.batch, pl.seq), outs, mesh)
+    return rel_err(got[..., None], want[..., None].float())
+
+
+def _ssm_caches(cache, S):
+    """Copies of an ssm or hybrid cache's prefill state: conv, ssm, and the
+    shared block's first S positions of sh_k / sh_v."""
+    out = {"conv": cache["ssm"].conv.clone(), "ssm": cache["ssm"].ssm.clone()}
+    out.update({k: cache[k][:, :, :, :S].clone() for k in ("sh_k", "sh_v") if k in cache})
+    return out
+
+
+def _ssm_cache_errs(got, want):
+    """||got - want|| / ||want|| of each `_ssm_caches` tensor per (layer,
+    batch row, head), and of the SSM state per (layer, batch row) over
+    every head (`ssm_row`: the state one layer of one sequence hands the
+    next token)."""
+    from repro_torch.kernels.checks import rel_err
+    out = {k: rel_err(got[k].flatten(0, 1), want[k].flatten(0, 1).float()) for k in want}
+    out["ssm_row"] = rel_err(got["ssm"].flatten(2), want["ssm"].flatten(2).float())
+    return out
+
+
+def _partition_ssm_case(torch, dev, arch, layers, dtype, meshes):
+    """One ssm or hybrid model at full width, `layers` deep, in `dtype`:
+    the unpartitioned prefill (B3, B1) and PARTITION_STEPS greedy serve
+    steps (B2), then per mesh shape the same from shards of the same
+    weights on ranks that share the card: launches exact (B3 layers x
+    ranks, B1 shared-block uses x ranks per prefill, none in a serve step),
+    the prefill's logits, conv state and shared-block K/V per (layer, row,
+    head), its SSM state per (layer, row) and each serve step's logits
+    against the unpartitioned run (the SSM state per head reported: a head
+    whose decay forgets all but a few tokens keeps a tiny state, f32's
+    rounding of its log-decay ~|dt·A| x 64 per chunk reads 1e-4 of it, and
+    in bf16 the readings of the plain versions' unpartitioned prefill, the
+    yardstick of one more rounding, reach 0.2 per head and 0.1 per row at
+    zamba2's 54 layers: bf16 holds the state per row to the larger of the
+    limit and that yardstick; the first token reported, one more rounding
+    may flip a near tie), the collective bytes
+    against the dry run's (bf16), and on the first mesh in bf16 the
+    planted fault of its scan layout: the last rank's heads dropped from
+    y's all-gather (the prefill's logits); in the sequence fallback every
+    row of layer 0's output against the whole layer's (`_layer_rows_err`),
+    and in bf16 the entering state dropped there."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.checks import rel_err
+    from repro_torch.launch import dryrun, partition, steps
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import init_cache, init_params, tp
+    from repro_torch.sp.common import GangMesh
+
+    bf16 = dtype == "bfloat16"
+    tol = PARTITION_REL_TOL if bf16 else PARTITION_F32_TOL
+    B, S, N, C = PARTITION_BATCH, PARTITION_PROMPT, PS_STEPS, PARTITION_CACHE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+    uses = layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    V = cfg.vocab_size
+    pre = ShapeConfig(f"prefill_{B}x{S}", S, B, "prefill")
+    dec = ShapeConfig(f"decode_{B}x{C}", C, B, "decode")
+    params = init_params(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    prefill, serve = steps.build_prefill_step(cfg, pre), steps.build_serve_step(cfg, dec)
+    cache = init_cache(cfg, B, C, device=dev)
+    (lg, cache), pre_s, counts = _run_counted(
+        torch, lambda: prefill(params, {"tokens": toks}, cache))
+    _expect("partition_ssm", f"{arch} unpartitioned ssd_scan per prefill",
+            counts["ssd_scan"], layers)
+    _expect("partition_ssm", f"{arch} unpartitioned flash_attention per prefill",
+            counts["flash_attention"], uses)
+    ref = _ssm_caches(cache, S)
+    limits = dict.fromkeys(("conv", "sh_k", "sh_v", "ssm_row"), tol)
+    yardstick = {}
+    if bf16:
+        c = init_cache(cfg, B, C, device=dev)
+        lg_plain, c = steps.build_prefill_step(cfg, pre, impl="torch")(
+            params, {"tokens": toks}, c)
+        yardstick = dict(_ssm_cache_errs(_ssm_caches(c, S), ref),
+                         logits=rel_err(lg_plain[None, :, :V], lg[None, :, :V].float()))
+        limits["ssm_row"] = max(tol, yardstick["ssm_row"])
+        del c, lg_plain
+
+    def greedy():
+        out, last = [], lg
+        for _ in range(N):
+            tok = last.argmax(-1)
+            last, _ = serve(params, cache, tok)
+            out.append((tok, last))
+        return out
+    want, dec_s, dc = _run_counted(torch, greedy)
+    _expect("partition_ssm", f"{arch} unpartitioned flash_decode over {N} steps",
+            dc["flash_decode"], uses * N)
+    launches = {k: counts[k] + dc[k] for k in counts}
+    del cache
+    res = dict(arch=arch, dtype=dtype, layers=layers, shared_block_uses=uses, batch=B,
+               prompt=S, cache_len=C, steps=N, tol=tol, limits=limits,
+               plain_vs_kernels=yardstick,
+               unpartitioned=dict(prefill_s=pre_s, decode_ms_per_step=1e3 * dec_s / N))
+    for shape in meshes:
+        n = shape[0] * shape[1]
+        mesh = GangMesh([dev] * n, shape, ("data", "model"))
+        tag = f"{shape[0]}x{shape[1]}"
+        pl = tp.plan(cfg, mesh, batch=B, seq=S, long_context=False)
+        layout = "heads" if pl.ssd_heads else "rows" if pl.ssd_rows else "whole"
+
+        def shards(mesh):
+            pspecs = shd.param_specs(cfg, params, mesh,
+                                     fsdp=shd.needs_fsdp(cfg, mesh, "prefill"))
+            c = init_cache(cfg, B, C, device=dev)
+            cspecs = shd.cache_specs(cfg, c, mesh, global_batch=B)
+            return (partition.shard_tree(params, pspecs, mesh),
+                    partition.shard_tree({"tokens": toks}, shd.batch_specs(cfg, pre, mesh),
+                                         mesh),
+                    partition.shard_tree(c, cspecs, mesh),
+                    shd.per_device_bytes(params, pspecs, mesh)
+                    + shd.per_device_bytes(c, cspecs, mesh))
+        p, b, c, rank_bytes = shards(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_bytes()
+        (lg_s, c), p_pre_s, pc = _run_counted(torch, lambda: prefill(p, b, c))
+        pre_bytes = dict(mesh.collective_bytes[0])
+        _expect("partition_ssm", f"{arch} {tag} ssd_scan per prefill", pc["ssd_scan"],
+                layers * n)
+        _expect("partition_ssm", f"{arch} {tag} flash_attention per prefill",
+                pc["flash_attention"], uses * n)
+        got = partition.unshard_tree(lg_s)
+        caches = _ssm_caches(partition.unshard_tree(c), S)
+        tspec = shd.batch_specs(cfg, dec, mesh)["token"]
+        step_bytes = []
+
+        def run(c=c):
+            out, last = [], got
+            for i in range(N):
+                # bf16 teacher-forced by the unpartitioned tokens; f32 greedy
+                tok = want[i][0] if bf16 else last.argmax(-1)
+                mesh.reset_bytes()
+                lg_i, c = serve(p, c, partition.shard_tree(tok, tspec, mesh))
+                step_bytes.append(dict(mesh.collective_bytes[0]))
+                last = partition.unshard_tree(lg_i)
+                out.append((tok, last))
+            return out
+        out, p_dec_s, sc = _run_counted(torch, run)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for k in sc:
+            _expect("partition_ssm", f"{arch} {tag} {k} over {N} steps", sc[k], 0)
+        logits_err = rel_err(got[None, :, :V], lg[None, :, :V].float())
+        cache_errs = _ssm_cache_errs(caches, ref)
+        del caches
+        errs = _rel_norms(out, want, V)
+        steps_same, rows_same = _same_tokens(out, want)
+        first_same = bool(torch.equal(got.argmax(-1), lg.argmax(-1)))
+        fails = []
+        if (max([logits_err] + errs) > tol
+                or any(cache_errs[k] > lim for k, lim in limits.items() if k in cache_errs)):
+            fails.append(f"logits {logits_err:.3e}, caches {cache_errs}, serve steps "
+                         f"{max(errs):.3e} against the limits {tol}, {limits}")
+        if not bf16 and steps_same != N:
+            fails.append(f"the same greedy tokens in {steps_same} of {N} steps")
+        if any(sb != step_bytes[0] for sb in step_bytes):
+            fails.append("the serve steps moved different collective bytes")
+        row = dict(mesh=dict(mesh.shape), scan_layout=layout, first_token_same=first_same,
+                   prefill_logits_rel_err=logits_err, cache_rel_err=cache_errs,
+                   serve_rel_err_max=max(errs), steps_tokens_same=steps_same,
+                   rows_tokens_same=rows_same, prefill_s=p_pre_s,
+                   decode_ms_per_step=1e3 * p_dec_s / N, card_peak_gb=peak_gb,
+                   rank_argument_gb=rank_bytes / 1e9,
+                   collective_bytes=dict(prefill=pre_bytes, serve_step=step_bytes[0]))
+        if bf16:
+            recs = {"prefill": dryrun.collective_bytes(cfg, pre, mesh, max_len=C),
+                    "serve_step": dryrun.collective_bytes(cfg, dec, mesh)}
+            row["dry_run_collectives_equal"] = recs == row["collective_bytes"]
+            if not row["dry_run_collectives_equal"]:
+                fails.append(f"collective bytes on the card {row['collective_bytes']} "
+                             f"against the dry run's {recs}")
+        if layout == "rows":
+            # every row of layer 0's output, whose first rows in each
+            # rank's piece read the state entering it
+            x0 = params["embed"][toks].to(getattr(torch, dtype))
+            row["layer0_rows_rel_err"] = _layer_rows_err(torch, cfg, params, mesh, pl, x0)
+            if row["layer0_rows_rel_err"] > tol:
+                fails.append(f"layer 0's rows {row['layer0_rows_rel_err']:.3e} against "
+                             f"the limit {tol}")
+            if bf16:
+                with _dropping_entering_state():
+                    row["dropped_entering_state_rel_err"] = _layer_rows_err(
+                        torch, cfg, params, mesh, pl, x0)
+                if row["dropped_entering_state_rel_err"] <= tol:
+                    fails.append(f"layer 0's rows without the entering state read "
+                                 f"{row['dropped_entering_state_rel_err']:.3e}, inside "
+                                 "the limit")
+            del x0
+        if bf16 and shape == meshes[0] and layout == "heads":
+            fp, fb, fc, _ = shards(mesh)
+            with _dropping_heads(cfg, mesh):
+                fault = partition.unshard_tree(prefill(fp, fb, fc)[0])
+            row["dropped_heads_rel_err"] = rel_err(fault[None, :, :V], lg[None, :, :V].float())
+            del fp, fb, fc, fault
+            if row["dropped_heads_rel_err"] <= tol:
+                fails.append(f"a prefill without the last rank's heads in y reads "
+                             f"{row['dropped_heads_rel_err']:.3e}, inside the limit")
+        for k in launches:
+            launches[k] += pc[k] + sc[k]
+        res[tag] = row
+        del p, b, c, lg_s, got, out
+        torch.cuda.empty_cache()
+        if fails:
+            raise AssertionError(f"partition_ssm: {arch} {dtype} on {tag}: " + "; ".join(fails)
+                                 + f" (readings: {json.dumps(row, default=str)[:3000]})")
+    del params, want, ref, lg
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def phase_partition_ssm(torch, dev, smi):
+    """The ssm and hybrid families' partitioned steps (module doc, 23)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    runs, launches = {}, dict.fromkeys(_counters(), 0)
+    cases = []
+    for arch in ("mamba2_130m", "zamba2_2_7b"):
+        cases += [(f"{arch}_bf16", arch, get_config(arch).num_layers, "bfloat16", PM_MESHES),
+                  (f"{arch}_f32", arch, PS_F32_LAYERS[arch], "float32", PM_MESHES)]
+    cases += [(f"mamba2_130m_rows_{dt}", "mamba2_130m", PS_ROWS_LAYERS, dt, (PS_ROWS_MESH,))
+              for dt in ("bfloat16", "float32")]
+    for name, arch, layers, dtype, meshes in cases:
+        runs[name], counts = _partition_ssm_case(torch, dev, arch, layers, dtype, meshes)
+        for k, v in counts.items():
+            launches[k] += v
+    runs["train"] = dict(
+        **_pt_case(torch, dev, "zamba2_2_7b", PS_TRAIN_LAYERS, PS_TRAIN_LAYERS, PT_MESHES,
+                   profile=False, model_psum_fault="in_proj"),
+        **_pt_case(torch, dev, "mamba2_130m", PS_SSM_TRAIN_LAYERS, 1, PT_MESHES,
+                   profile=False))
+    _say("partition_ssm", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
+         f32_tol=PARTITION_F32_TOL, loss_tol=PT_LOSS_TOL,
+         cut=f"f32 serving runs at {PS_F32_LAYERS} layers; the sequence fallback at "
+         f"{PS_ROWS_LAYERS} of 24; zamba2_2_7b's train step {PS_TRAIN_LAYERS} of 54 "
+         f"(one segment; f32 the same), mamba2_130m's {PS_SSM_TRAIN_LAYERS} of 24 (f32 1)",
+         runs=runs, launches=launches, phase_s=time.perf_counter() - t0)
     return launches
 
 
@@ -2764,6 +3153,9 @@ def _phases(torch, smi, matrix_job) -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in phase_partition_moe(torch, dev, smi).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in phase_partition_ssm(torch, dev, smi).items():
         launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

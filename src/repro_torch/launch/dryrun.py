@@ -46,18 +46,20 @@ factored moments' temporaries are what the full step holds.
 Collective bytes, which the reference parses from partitioned HLO
 (``collective_bytes_from_hlo``: each collective's result bytes in one
 device's program), come from the partitioner's own count: the train,
-prefill and serve steps of the dense, vlm and moe families run
-partitioned (`launch/partition.py`) on meta ranks of the combo's mesh,
+prefill and serve steps of the dense, vlm, moe, ssm and hybrid families
+(`models/tp.FAMILIES`) run partitioned (`launch/partition.py`) on meta
+ranks of the combo's mesh,
 rank 0's body alone, and the mesh counts rank 0's collective bytes by
 kind — the train step's backward too, each collective's dual
 (`sp.common.collective`), with FSDP over the batch axes ("pod", "data" on
 the multi-pod mesh); moe's experts go over "model" and its meta rank
 dispatches through the reference's one-hot restricted to its experts
-(`moe.expert_partial`: a meta rank has no values to route by); a step
-deeper than 3 layers runs at 2 and 3 and is extrapolated (every layer
-moves the same bytes).  The ssm, hybrid and audio families have no
-partitioned step yet: their records carry ``"collectives": null`` and the
-reason (`collectives_reason`).
+(`moe.expert_partial`: a meta rank has no values to route by); the
+Mamba2 scan's row pieces enter every rank's state passing, so rank 0's
+body moves what every rank's does; a step deeper than 3 units runs at 2
+and 3 and is extrapolated (every layer, every hybrid segment, moves the
+same bytes).  The audio family has no partitioned step yet: its records
+carry ``"collectives": null`` and the reason (`collectives_reason`).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
         --shape train_4k [--multi-pod] [--out build/dryrun_torch]

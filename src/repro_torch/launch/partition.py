@@ -8,9 +8,10 @@ full-width model's shards on ranks that share one card cost no memory.
 `unshard_tree` joins the pieces back.  `run_lockstep` runs one body per
 rank (`sp.common.lockstep`); a body reaches the other ranks only through
 its `Rank`'s collectives, which the mesh counts by kind.  `prefill` and
-`serve` are the partitioned prefill and serve steps of the dense, vlm and
-moe families (`models/tp.py`; moe with its experts over "model"),
-`loss_and_grads` and `train` their FSDP train step;
+`serve` are the partitioned prefill and serve steps of the families of
+`models/tp.FAMILIES` (moe with its experts over "model"; ssm and hybrid
+with the Mamba2 scan over "model" by heads or rows, the hybrid's shared
+block tensor-parallel), `loss_and_grads` and `train` their FSDP train step;
 `steps.build_prefill_step`, `build_serve_step` and `build_train_step` run
 them when given `Sharded` arguments.  Under
 autograd the ranks' pieces form one graph (each collective one node over
@@ -316,6 +317,12 @@ def _check_family(cfg: ModelConfig) -> None:
             f"partitioned steps cover the {tp.families()} families, not {cfg.family}")
 
 
+def _kv_spec(cache: Sharded):
+    """The spec of the attention cache the plan lays out: "k", the hybrid's
+    shared block's "sh_k", none for ssm."""
+    return cache.specs.get("k", cache.specs.get("sh_k"))
+
+
 def prefill(cfg: ModelConfig, params: Sharded, batch: Sharded, cache: Sharded, *,
             impl: str = "auto", long_context: bool = False):
     """`model.prefill` partitioned: (last-token logits (B, V) sharded over
@@ -328,7 +335,7 @@ def prefill(cfg: ModelConfig, params: Sharded, batch: Sharded, cache: Sharded, *
     if cfg.family == "vlm":
         S += batch.local[0]["embeds"].shape[1]
     pl = tp.plan(cfg, mesh, batch=B, seq=S, long_context=long_context,
-                 tok_spec=batch.specs["tokens"], cache_spec=cache.specs["k"])
+                 tok_spec=batch.specs["tokens"], cache_spec=_kv_spec(cache))
     with torch.no_grad():
         outs = run_lockstep(mesh, lambda rk: tp.prefill_rank(
             rk, cfg, pl, params.local[rk.rank], params.specs, batch.local[rk.rank],
@@ -345,7 +352,7 @@ def serve(cfg: ModelConfig, params: Sharded, cache: Sharded, token: Sharded, *,
     mesh = _mesh_of(params, cache, token)
     (B,) = _global_shape(token.local[0], token.specs, mesh)
     pl = tp.plan(cfg, mesh, batch=B, seq=1, long_context=long_context,
-                 tok_spec=token.specs, cache_spec=cache.specs["k"])
+                 tok_spec=token.specs, cache_spec=_kv_spec(cache))
     with torch.no_grad():
         outs = run_lockstep(mesh, lambda rk: tp.serve_rank(
             rk, cfg, pl, params.local[rk.rank], params.specs, cache.local[rk.rank],

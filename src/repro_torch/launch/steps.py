@@ -15,8 +15,9 @@ the sequence-sharded decode (`layers._cached_decode_attention`).
 
 Given `launch.partition.Sharded` arguments (`partition.shard_tree` over
 the spec trees of `launch/shardings.py`), the three steps of the dense,
-vlm and moe families (moe with its experts over "model") run partitioned
-over the arguments' mesh, as XLA
+vlm, moe, ssm and hybrid families (`models/tp.FAMILIES`: moe with its
+experts over "model", the Mamba2 scan over "model" by heads or rows) run
+partitioned over the arguments' mesh, as XLA
 partitions the reference's under its rules: each rank holds its shards and
 runs `models/tp.py`'s body in lockstep with the others; the train step
 under the fsdp rules (`partition.train`).  Whole tensors take the path

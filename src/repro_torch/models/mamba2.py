@@ -1,7 +1,11 @@
 """Mamba2 (SSD) block: in_proj -> causal depthwise conv -> SSD scan -> gated
 RMSNorm -> out_proj.  Prefill runs the chunked SSD (``ops.ssd_scan``, the
 hand kernel on the card); decode carries (conv_state, ssm_state), constant
-memory per token.
+memory per token.  The block is composed of pieces the partitioned steps
+(`models/tp._mamba`) call on their own: `mamba2_in` (in_proj, the conv,
+dt), `mamba2_scan` over a range of heads, `pass_states` / `enter_state`
+(the state entering a range of rows, from the states of the rows before
+it) and `mamba2_out` (the gated norm, out_proj).
 
 Rounding follows the reference (``models/mamba2.py``): ``A_log``, ``D`` and
 ``dt_bias`` stay f32 in a bf16 model, dt goes through softplus in f32, and
@@ -68,28 +72,81 @@ def _split_proj(cfg: ModelConfig, u: torch.Tensor):
     return torch.split(u, [di, di, ns, ns, nh], dim=-1)     # z, x, B, C, dt
 
 
-def mamba2_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                 state: Optional[SSMState] = None, *, return_state: bool = False,
-                 impl: str = "auto"):
-    """x (B, S, d) -> y (B, S, d) [, SSMState].  x, B and C reach the scan as
-    strided views of the conv output (the kernel reads them in place)."""
-    B, S, d = x.shape
+def mamba2_in(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+              prev_conv: Optional[torch.Tensor] = None):
+    """in_proj, the causal conv and the step sizes of x (B, S, d): (z (B,
+    S, di), x (B, S, nh, hd), B, C (B, S, ns), dt (B, S, nh) f32 after
+    softplus, A (nh,), the conv state).  x, B and C are strided views of
+    the conv's output (the kernel reads them in place)."""
+    B, S, _ = x.shape
     di, ns, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     u = torch.matmul(x, p["in_proj"].to(x.dtype))
     z, xs, Bm, Cm, dt = _split_proj(cfg, u)
     xbc = torch.cat([xs, Bm, Cm], dim=-1)
-    prev_conv = state.conv if state is not None else None
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], prev_conv)
     xs, Bm, Cm = torch.split(xbc, [di, ns, ns], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None])
     A = -torch.exp(p["A_log"])
-    xh = xs.reshape(B, S, nh, hd)
-    init_ssm = state.ssm if state is not None else None
-    y, ssm_state = ops.ssd_scan(xh, dt, A, Bm, Cm, p["D"], chunk=cfg.ssm_chunk,
-                                init_state=init_ssm, return_state=True, impl=impl)
-    y = y.reshape(B, S, di)
+    return z, xs.reshape(B, S, nh, hd), Bm, Cm, dt, A, conv_state
+
+
+def mamba2_scan(cfg: ModelConfig, p: Dict[str, torch.Tensor], xh, dt, A, Bm, Cm, *,
+                heads: Optional[Tuple[int, int]] = None,
+                init_state: Optional[torch.Tensor] = None, impl: str = "auto"):
+    """The SSD scan (`ops.ssd_scan`) of the heads [h0, h0 + n) (`heads` =
+    (h0, n); None: every head) over the rows it is given, B and C shared by
+    every head: (y (B, S, n, hd), the final f32 state (B, n, hd, ns))."""
+    h0, n = heads if heads is not None else (0, xh.shape[2])
+    sl = slice(h0, h0 + n)
+    return ops.ssd_scan(xh[:, :, sl], dt[..., sl], A[sl], Bm, Cm, p["D"][sl],
+                        chunk=cfg.ssm_chunk, init_state=init_state, return_state=True,
+                        impl=impl)
+
+
+def pass_states(states: torch.Tensor, totals: torch.Tensor,
+                n: Optional[int] = None) -> torch.Tensor:
+    """The f32 state after the first `n` (default: all k) of k consecutive
+    row pieces, each scanned from a zero state: states (k, B, nh, hd, ns)
+    their final states, totals (k, B, nh) their rows' summed dt·A; h <-
+    exp(T_j) h + S_j from h = 0.  The pieces past `n` enter times 0, so
+    that every rank of a mesh runs the same operations on the same
+    gathered pieces, as an SPMD program does."""
+    h = states.new_zeros(states.shape[1:])
+    for j, (s, t) in enumerate(zip(states, totals)):
+        on = float(n is None or j < n)
+        h = h * torch.exp(t * on)[..., None, None] + s * on
+    return h
+
+
+def enter_state(y: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
+                h_in: torch.Tensor) -> torch.Tensor:
+    """y (B, s, nh, hd) of a scan from a zero state made the scan's from
+    the entering state h_in (B, nh, hd, ns): y_t + exp(Σ_{u<=t} dt_u·A)
+    (C_t · h_in), in f32, rounded to y's dtype."""
+    seg = torch.cumsum(dt * A, dim=1)                                 # (B, s, nh)
+    corr = torch.einsum("bsn,bhpn->bshp", C.float(), h_in) * torch.exp(seg)[..., None]
+    return (y.float() + corr).to(y.dtype)
+
+
+def mamba2_out(cfg: ModelConfig, p: Dict[str, torch.Tensor], y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """The gated RMSNorm over d_inner and out_proj: y, z (B, S, di) -> (B,
+    S, d) in z's dtype."""
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    return torch.matmul(y, p["out_proj"].to(z.dtype))
+
+
+def mamba2_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 state: Optional[SSMState] = None, *, return_state: bool = False,
+                 impl: str = "auto"):
+    """x (B, S, d) -> y (B, S, d) [, SSMState]: `mamba2_in`, `mamba2_scan`
+    over every head, `mamba2_out`."""
+    B, S, _ = x.shape
+    z, xh, Bm, Cm, dt, A, conv_state = mamba2_in(
+        cfg, p, x, state.conv if state is not None else None)
+    y, ssm_state = mamba2_scan(cfg, p, xh, dt, A, Bm, Cm, impl=impl,
+                               init_state=state.ssm if state is not None else None)
+    out = mamba2_out(cfg, p, y.reshape(B, S, cfg.d_inner), z)
     if return_state:
         return out, SSMState(conv=conv_state, ssm=ssm_state)
     return out

@@ -1,8 +1,8 @@
-"""Per-rank bodies of the dense, vlm and moe families under the sharding
-rules: what `models/layers.py`, `models/moe.py` and the dense and moe
-branches of `models/model.py` become when XLA's SPMD partitioner splits the
-reference's steps under `standard_rules`, written out for one rank of a
-`GangMesh`.  The caller (`launch/partition.py`) runs one body per rank in
+"""Per-rank bodies of the dense, vlm, moe, ssm and hybrid families under
+the sharding rules: what `models/layers.py`, `models/moe.py`,
+`models/mamba2.py` and `models/model.py` become when XLA's SPMD
+partitioner splits the reference's steps under `standard_rules`, written
+out for one rank of a `GangMesh`.  The caller (`launch/partition.py`) runs one body per rank in
 lockstep; a body reaches the other ranks only through its `Rank`'s
 collectives.
 
@@ -45,12 +45,28 @@ The layouts come from the reference's call sites through `resolve_spec` /
   sequence; where the experts do not divide "model" every rank runs every
   expert and no sum is taken; the shared expert is column- and
   row-parallel like the dense MLP;
+* the Mamba2 layer (`_mamba`) with in_proj and out_proj whole over
+  "model" (the reference's `param_specs`): every model rank runs in_proj,
+  the conv and the gate over the whole gathered sequence of its batch
+  rows, as XLA does; the scan input ("batch", None, "heads", None) first,
+  ("batch", "seq", None, None) second (reference `mamba2.py:70`): the
+  rank scans its heads (B3 on them, y and the prefill's final state
+  all-gathered over the heads), or its rows (B3 from a zero state, the
+  ranks' final states and summed dt·A all-gathered over the rows' axes,
+  the state entering the rank's rows passed from them and added to y, the
+  norm and out_proj on the rank's rows), or, where neither divides (one
+  sequence under the long-context rules), every head of the whole
+  sequence; the serve step runs `mamba2_step` on the rank's batch rows
+  with every head and no collective; the state cache is whole over
+  "model" and cut over the batch axes;
+* the hybrid's shared attention and MLP block as a dense layer (no
+  window), its K/V into ``sh_k`` / ``sh_v`` in the cache's layout;
 * the train step's loss (`loss_rank`, under the fsdp rules) on the logits
   as the reference constrains them, the sequence gathered and the
   vocabulary over "model": each slice's max and sum of exponentials
   merged across the vocab ranks, the labels' logits taken where their
   slice lies; moe adds 0.01 x the load-balance loss, its per-expert means
-  taken over every group.
+  taken over every group; remat per layer, per hybrid segment.
 
 A dim that its axes do not divide stays whole, as the rules leave it.
 """
@@ -66,6 +82,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import model as mdl
 from repro_torch.models import moe as MOE
 from repro_torch.models.sharding import (resolve_first, resolve_spec,
@@ -74,7 +91,7 @@ from repro_torch.sp.common import as_axes
 from repro_torch.sp.decode import distributed_decode_local
 
 Axes = Tuple[str, ...]
-FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def families() -> str:
@@ -94,6 +111,8 @@ class Plan:
     cache_seq: Axes    # the KV cache's sequence
     moe_batch: Axes = ()   # moe: the routing groups' axes ("batch", None, None)
     moe_group: int = 0     # moe: tokens per routing group
+    ssd_heads: Axes = ()   # ssm, hybrid: the scan's heads, or
+    ssd_rows: Axes = ()    # its rows (the fallback), or neither: the scan whole
 
 
 def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
@@ -117,6 +136,9 @@ def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
         if cfg.family == "moe":
             G, Tg = MOE.groups(B * S)
             gs = resolve_spec((G, Tg, d), "batch", None, None)
+        if cfg.family in ("ssm", "hybrid"):
+            xh = resolve_first((B, S, cfg.ssm_heads, cfg.ssm_headdim),
+                               ("batch", None, "heads", None), ("batch", "seq", None, None))
     p = Plan(batch=as_axes(xs[0]), seq=as_axes(xs[1]) if S > 1 else (),
              tok_seq=as_axes(tok_spec[1]) if tok_spec is not None and len(tok_spec) > 1
              else (),
@@ -126,14 +148,17 @@ def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
              cache_seq=as_axes(cache_spec[3]) if cache_spec is not None else ())
     if cfg.family == "moe":
         p = dataclasses.replace(p, moe_batch=as_axes(gs[0]), moe_group=Tg)
+    if cfg.family in ("ssm", "hybrid") and xh is not None and S > 1:
+        p = dataclasses.replace(p, ssd_heads=as_axes(xh[2]), ssd_rows=as_axes(xh[1]))
     for what, spec in (("tokens", tok_spec), ("cache", cache_spec)):
         ax = () if spec is None else as_axes(spec[0 if what == "tokens" else 1])
         if spec is not None and ax != p.batch:
             raise ValueError(f"partitioned step: the {what}' batch axes {ax} are "
                              f"not the residual's {p.batch}")
-    if p.q_rows and p.q_rows != p.seq:
-        raise ValueError(f"partitioned step: q's rows over {p.q_rows}, the "
-                         f"residual's over {p.seq}")
+    for what, rows in (("q", p.q_rows), ("the scan", p.ssd_rows)):
+        if rows and rows != p.seq:
+            raise ValueError(f"partitioned step: {what}'s rows over {rows}, the "
+                             f"residual's over {p.seq}")
     return p
 
 
@@ -327,8 +352,9 @@ def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
     k = L.rope(k.reshape(b, S, nkv, hd), positions, cfg.rope_theta)
     kh, vh = k.transpose(1, 2), v.reshape(b, S, nkv, hd).transpose(1, 2)
     ka, va = _kv_for(kh, vh, h0, nh, H // KV, rk.index(pl.kv_heads) * nkv)
-    # the reference's moe layer gives its attention no window
-    window = 0 if cfg.family == "moe" else cfg.sliding_window
+    # the reference's moe layer and hybrid shared block give their
+    # attention no window
+    window = cfg.sliding_window if cfg.family in ("dense", "vlm") else 0
     o = ops.attention(q.transpose(1, 2), ka, va, causal=True,
                       sliding_window=window, q_offset=q0, impl=impl)
     o = o.transpose(1, 2).reshape(b, sq, nh * hd)
@@ -341,6 +367,51 @@ def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
             return _reduce_to(rk, out, rows, pl.seq, done=pl.q_rows[:-len(rows)]), (kh, vh)
         o = rk.all_gather(o, pl.q_rows, axis=1)
     return _row(rk, o, pl.q_heads, p, ps, "wo", pl.seq), (kh, vh)
+
+
+def _mamba(rk, cfg: ModelConfig, pl: Plan, p, ps, x, *, impl: str, state: bool = False):
+    """One Mamba2 layer (`model._mamba_layer`) on the rank's residual rows
+    x: (x, with `state` the layer's (conv, ssm) state of the rank's batch
+    rows, else None).  in_proj and out_proj are whole over "model", so the
+    rank runs in_proj, the conv and the gate over the whole gathered
+    sequence (`mamba2.mamba2_in`).  The scan takes the plan's layout: the
+    rank's heads, x, dt, A and D cut to them (`ssd_heads`), y and the final
+    state all-gathered over them; or its rows (`ssd_rows`, the residual's),
+    scanned from a zero state, each rank's final state and summed dt·A
+    all-gathered over the rows' axes, the state entering its rows passed
+    from the earlier ranks' (`mamba2.pass_states`) and added to y
+    (`mamba2.enter_state`), the norm and out_proj run on its rows alone;
+    or whole.  A rank's gradient reaches each weight through its own
+    heads or rows and its own residual rows only, so the sums over the
+    ranks count each contribution once."""
+    w = {k: _weight(rk, v, ps["mamba"][k]) for k, v in p["mamba"].items()}
+    h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), p["ln"], cfg.norm_eps)
+    b, S, _ = h.shape
+    nh, hd = cfg.ssm_heads, cfg.ssm_headdim
+    z, xh, Bm, Cm, dt, A, conv = M.mamba2_in(cfg, w, h)
+    if pl.ssd_rows:
+        s = S // rk.size(pl.ssd_rows)
+        r = rk.index(pl.ssd_rows)
+        rows = slice(r * s, (r + 1) * s)
+        dt, Cm = dt[:, rows], Cm[:, rows]
+        y, last = M.mamba2_scan(cfg, w, xh[:, rows], dt, A, Bm[:, rows], Cm, impl=impl)
+        states = rk.all_gather(last[None], pl.ssd_rows, axis=0)
+        totals = rk.all_gather((dt * A).sum(1)[None], pl.ssd_rows, axis=0)
+        y = M.enter_state(y, dt, A, Cm, M.pass_states(states, totals, r))
+        out = M.mamba2_out(cfg, w, y.reshape(b, s, nh * hd), z[:, rows])
+        return x + out, ((conv, M.pass_states(states, totals)) if state else None)
+    if pl.ssd_heads:
+        n = nh // rk.size(pl.ssd_heads)
+        y, last = M.mamba2_scan(cfg, w, xh, dt, A, Bm, Cm, impl=impl,
+                                heads=(rk.index(pl.ssd_heads) * n, n))
+        y = rk.all_gather(y.reshape(b, S, n * hd), pl.ssd_heads, axis=-1)
+        if state:
+            last = rk.all_gather(last, pl.ssd_heads, axis=1)
+    else:
+        y, last = M.mamba2_scan(cfg, w, xh, dt, A, Bm, Cm, impl=impl)
+        y = y.reshape(b, S, nh * hd)
+    out = M.mamba2_out(cfg, w, y, z)
+    return x + rk.local(out, 1, pl.seq), ((conv, last) if state else None)
 
 
 def _write_prefix(rk, pl: Plan, dst, src) -> None:
@@ -414,10 +485,24 @@ def prefill_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any],
     x, _ = _embed_rows(rk, cfg, pl, p, ps, batch)
     b, S = x.shape[0], x.shape[1] * rk.size(pl.seq)
     positions = torch.arange(S, device=x.device)
+    every = cfg.attn_every if cfg.family == "hybrid" else 0
     for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
-        x, (k, v), _ = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl)
-        _write_prefix(rk, pl, cache["k"][li], k)
-        _write_prefix(rk, pl, cache["v"][li], v)
+        if cfg.family in ("ssm", "hybrid"):
+            # the state cache is whole over "model": every rank writes the
+            # same values
+            x, (conv, last) = _mamba(rk, cfg, pl, pl_, ps_, x, impl=impl, state=True)
+            cache["ssm"].conv[li].copy_(conv)
+            cache["ssm"].ssm[li].copy_(last)
+            if not every or (li + 1) % every:
+                continue
+            names, i = ("sh_k", "sh_v"), (li + 1) // every - 1
+            x, (k, v), _ = _layer(rk, cfg, pl, p["shared"], ps["shared"], x, positions,
+                                  impl=impl)
+        else:
+            names, i = ("k", "v"), li
+            x, (k, v), _ = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl)
+        _write_prefix(rk, pl, cache[names[0]][i], k)
+        _write_prefix(rk, pl, cache[names[1]][i], v)
     last = rk.all_gather(x[:, -1:], pl.seq, axis=1)[:, -1]
     cache = dict(cache, len=torch.full((b,), S, dtype=torch.int32, device=x.device))
     return _lm_head(rk, cfg, p, ps, last), cache
@@ -440,11 +525,37 @@ def _nll(rk, va: Axes, logits, labels):
     return ((lse - rk.psum(picked, va)) * (labels >= 0)).sum()
 
 
+def _train_units(cfg: ModelConfig, pl: Plan, p, ps, positions, *, impl: str):
+    """(tag, fn(rank, x)) per unit of the reference's remat: a layer (moe:
+    fn gives the residual and the layer's load-balance loss); a hybrid
+    segment of `attn_every` Mamba2 layers and the shared block."""
+    if cfg.family not in ("ssm", "hybrid"):
+        for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
+            def layer(rk, x, pl_=pl_, ps_=ps_):
+                x, _, lb = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl,
+                                  balance=True)
+                return x if lb is None else (x, lb)
+            yield f"layer {li}", layer
+        return
+    hybrid = cfg.family == "hybrid"
+    every = cfg.attn_every if hybrid else 1
+    for si in range(len(p["layers"]) // every):
+        def unit(rk, x, lis=range(si * every, (si + 1) * every)):
+            for li in lis:
+                x, _ = _mamba(rk, cfg, pl, p["layers"][li], ps["layers"][li], x, impl=impl)
+            if hybrid:
+                x, _, _ = _layer(rk, cfg, pl, p["shared"], ps["shared"], x, positions,
+                                 impl=impl)
+            return x
+        yield f"{'segment' if hybrid else 'layer'} {si}", unit
+
+
 def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
               impl: str = "torch", remat: bool = True, loss_chunk: int = 512):
     """One rank's `model.loss_fn`: the global mean next-token cross entropy
     (every rank a copy).  The layers as `prefill_rank`'s without the cache
-    writes, each under `rk.remat` with `remat`; the logits as the reference
+    writes, each unit of the reference's remat (`_train_units`: a layer, a
+    hybrid segment) under `rk.remat` with `remat`; the logits as the reference
     constrains them, ("batch", None, "vocab"): the sequence gathered (vlm:
     the patch prefix cut off) and the vocabulary over the lm head's axes,
     the padded vocabulary masked on each slice; the f32 loss per chunk of
@@ -458,12 +569,8 @@ def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
     S = x.shape[1] * rk.size(pl.seq)
     positions = torch.arange(S, device=x.device)
     lbs = []
-    for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
-        def layer(rk, x, pl_=pl_, ps_=ps_):
-            x, _, lb = _layer(rk, cfg, pl, pl_, ps_, x, positions, impl=impl,
-                              balance=True)
-            return x if lb is None else (x, lb)
-        x = rk.remat(f"layer {li}", layer, x) if remat else layer(rk, x)
+    for tag, unit in _train_units(cfg, pl, p, ps, positions, impl=impl):
+        x = rk.remat(tag, unit, x) if remat else unit(rk, x)
         if cfg.family == "moe":
             x, lb = x
             lbs.append(lb)
@@ -490,49 +597,80 @@ def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
     return loss + 0.01 * torch.stack(lbs).mean() if lbs else loss
 
 
+def _decode_layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, kc, vc, clen, *,
+                  impl: str, ring_buffer: bool):
+    """One dense, vlm or moe layer of the serve step, or the hybrid's shared
+    block, on the rank's batch rows x (b, d): the token's K/V written into
+    kc / vc, the rank's (b, KV, S_max / |cache_seq|, hd) slices of the
+    layer's cache, where they hold its position."""
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b = x.shape[0]
+    ca = pl.cache_seq
+    window = 0 if ring_buffer else cfg.sliding_window
+
+    def decode(mesh, q, k, v, lens):
+        return distributed_decode_local(q, k, v, lens, mesh=mesh, seq_axes=ca,
+                                        sliding_window=window)
+    a, as_ = p["attn"], ps["attn"]
+    h = L.rms_norm(x, p["ln1"], eps)
+    # every head on every rank: the decode reads q whole, the cache holds
+    # every K/V head
+    q, k, v = (rk.all_gather(*_col(rk, h, a, as_, w, "b" + w[1]), axis=-1)
+               for w in ("wq", "wk", "wv"))
+    q = L.rope(q.reshape(b, 1, H, hd), clen[:, None], theta)[:, 0]
+    k = L.rope(k.reshape(b, 1, KV, hd), clen[:, None], theta)[:, 0]
+    s_max = kc.shape[2] * rk.size(ca)
+    pos = clen % s_max if ring_buffer else clen
+    _write_token(rk, ca, kc, k, pos)
+    _write_token(rk, ca, vc, v.reshape(b, KV, hd), pos)
+    eff = torch.clamp(clen + 1, max=s_max) if ring_buffer else clen + 1
+    if ca:
+        o = rk.meet(ca, "decode", decode, q, kc, vc, eff)
+    else:
+        o = ops.decode_attention(q, kc, vc, eff, sliding_window=window, impl=impl)
+    x = x + _row(rk, o.reshape(b, H * hd), (), a, as_, "wo", ())
+    h = L.rms_norm(x, p["ln2"], eps)
+    if cfg.family == "moe":
+        cf = min(float(cfg.decode_capacity_factor), float(cfg.num_experts))
+        return x + _moe(rk, cfg, pl, p["moe"], ps["moe"], h[:, None], (), cf)[0][:, 0]
+    return x + _mlp(rk, p["mlp"], ps["mlp"], h, ())
+
+
 def serve_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, cache: Dict[str, Any],
                token: torch.Tensor, *, impl: str = "auto", ring_buffer: bool = False):
     """One rank's `model.decode_step`: (its (b, V / |vocab|) logits, its
     cache with the token's K/V written where its slice holds the position
     and "len" advanced).  moe routes the batch as one group (T = B) with
-    the capacity factor min(decode_capacity_factor, E)."""
-    eps, theta = cfg.norm_eps, cfg.rope_theta
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    the capacity factor min(decode_capacity_factor, E).  ssm and hybrid:
+    `mamba2.mamba2_step` of the rank's batch rows with every head (its
+    weights whole over "model", no collective inside), the new states
+    written once every rank has read the old ones (the state cache is
+    whole over "model", so the ranks of one batch slice share it)."""
     e, va = _embed(rk, cfg, p, ps, token)
     x = rk.psum(e, va)
-    b = x.shape[0]
     clen = cache["len"]
-    ca = pl.cache_seq
-    window = 0 if ring_buffer else cfg.sliding_window
-    moe_cf = min(float(cfg.decode_capacity_factor), float(cfg.num_experts))
-
-    def decode(mesh, q, k, v, lens):
-        return distributed_decode_local(q, k, v, lens, mesh=mesh, seq_axes=ca,
-                                        sliding_window=window)
+    kw = dict(impl=impl, ring_buffer=ring_buffer)
+    if cfg.family not in ("ssm", "hybrid"):
+        for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
+            x = _decode_layer(rk, cfg, pl, pl_, ps_, x, cache["k"][li], cache["v"][li],
+                              clen, **kw)
+        return _lm_head(rk, cfg, p, ps, x), dict(cache, len=clen + 1)
+    every = cfg.attn_every if cfg.family == "hybrid" else 0
+    conv, ssm = cache["ssm"]
+    new = []
     for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
-        a, as_ = pl_["attn"], ps_["attn"]
-        h = L.rms_norm(x, pl_["ln1"], eps)
-        # every head on every rank: the decode reads q whole, the cache
-        # holds every K/V head
-        q, k, v = (rk.all_gather(*_col(rk, h, a, as_, w, "b" + w[1]), axis=-1)
-                   for w in ("wq", "wk", "wv"))
-        q = L.rope(q.reshape(b, 1, H, hd), clen[:, None], theta)[:, 0]
-        k = L.rope(k.reshape(b, 1, KV, hd), clen[:, None], theta)[:, 0]
-        kc, vc = cache["k"][li], cache["v"][li]
-        s_max = kc.shape[2] * rk.size(ca)
-        pos = clen % s_max if ring_buffer else clen
-        _write_token(rk, ca, kc, k, pos)
-        _write_token(rk, ca, vc, v.reshape(b, KV, hd), pos)
-        eff = torch.clamp(clen + 1, max=s_max) if ring_buffer else clen + 1
-        if ca:
-            o = rk.meet(ca, "decode", decode, q, kc, vc, eff)
-        else:
-            o = ops.decode_attention(q, kc, vc, eff, sliding_window=window, impl=impl)
-        x = x + _row(rk, o.reshape(b, H * hd), (), a, as_, "wo", ())
-        h = L.rms_norm(x, pl_["ln2"], eps)
-        if cfg.family == "moe":
-            x = x + _moe(rk, cfg, pl, pl_["moe"], ps_["moe"], h[:, None], (), moe_cf)[0][:, 0]
-        else:
-            x = x + _mlp(rk, pl_["mlp"], ps_["mlp"], h, ())
-    cache = dict(cache, len=clen + 1)
-    return _lm_head(rk, cfg, p, ps, x), cache
+        w = {k: _weight(rk, v, ps_["mamba"][k]) for k, v in pl_["mamba"].items()}
+        h, st = M.mamba2_step(cfg, w, L.rms_norm(x, pl_["ln"], cfg.norm_eps),
+                              M.SSMState(conv[li], ssm[li]))
+        new.append(st)
+        x = x + h
+        if every and (li + 1) % every == 0:
+            si = (li + 1) // every - 1
+            x = _decode_layer(rk, cfg, pl, p["shared"], ps["shared"], x, cache["sh_k"][si],
+                              cache["sh_v"][si], clen, **kw)
+    rk.barrier()
+    for li, st in enumerate(new):
+        conv[li].copy_(st.conv)
+        ssm[li].copy_(st.ssm)
+    return _lm_head(rk, cfg, p, ps, x), dict(cache, len=clen + 1)

@@ -484,9 +484,10 @@ def test_ring_decode_on_card_matches_cpu(cuda):
 
 def _partitioned_serving(cuda, cfg, shape):
     """A prefill of 4 x 32 tokens into a cache of 40 and 3 serve steps of
-    `cfg`, partitioned over four ranks sharing the card (B1 once per layer
-    and rank, the plain distributed decode) and over four CPU ranks: the
-    logits and caches to 1e-4, the same collective bytes, B1 and B2 counted
+    `cfg`, partitioned over four ranks sharing the card (B1 once per
+    attention layer and rank, B3 once per Mamba2 layer and rank, the plain
+    distributed decode) and over four CPU ranks: the logits and every
+    cache tensor to 1e-4, the same collective bytes, B1, B2 and B3 counted
     on the card."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import shardings as shd
@@ -499,7 +500,7 @@ def _partitioned_serving(cuda, cfg, shape):
                            generator=torch.Generator().manual_seed(7))
     pre, dec = ShapeConfig("p", 32, 4, "prefill"), ShapeConfig("d", 40, 4, "decode")
     runs, counts = [], []
-    before = flash_attention.launches, flash_decode.launches
+    before = flash_attention.launches, flash_decode.launches, ssd_scan.launches
     for dev in ("cpu", cuda):
         mesh = GangMesh([dev] * 4, shape, ("data", "model"))
         p = _to(params, dev)
@@ -515,14 +516,19 @@ def _partitioned_serving(cuda, cfg, shape):
                              mesh)
             lg, c = steps.build_serve_step(cfg, dec)(sp, c, tok)
             outs.append(unshard_tree(lg).cpu())
-        whole = unshard_tree(c)
-        runs.append(outs + [whole["k"].cpu(), whole["v"].cpu()])
+        cache = []
+        shd.walk(lambda path, x, n: cache.append(x.cpu()), unshard_tree(c))
+        runs.append(outs + cache)
         counts.append(mesh.collective_bytes)
     for got, want in zip(runs[1], runs[0]):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert counts[1] == counts[0]
-    assert flash_attention.launches == before[0] + cfg.num_layers * 4
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = {"ssm": 0, "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}.get(
+        cfg.family, cfg.num_layers)
+    assert flash_attention.launches == before[0] + attn * 4
     assert flash_decode.launches == before[1]
+    assert ssd_scan.launches == before[2] + mamba * 4
 
 
 @pytest.mark.cuda
@@ -557,7 +563,7 @@ def _partitioned_training(cuda, cfg, shape):
     ranks sharing the card and over four CPU ranks: loss and grad norm to
     1e-5, the params to 1e-4 but for AdamW's ±lr sign flips, the same
     collective bytes, no kernel launched (the step differentiates the plain
-    attention)."""
+    attention and SSD)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import shardings as shd
     from repro_torch.launch import steps
@@ -574,7 +580,7 @@ def _partitioned_training(cuda, cfg, shape):
                         "labels": torch.nn.functional.pad(tok[:, 1:], (0, 1), value=-1)})
     shape_cfg = ShapeConfig("t", 32, 4, "train")
     runs = []
-    before = flash_attention.launches, flash_decode.launches
+    before = flash_attention.launches, flash_decode.launches, ssd_scan.launches
     for dev in ("cpu", cuda):
         mesh = GangMesh([dev] * 4, shape, ("data", "model"))
         # a copy on each device: the step updates the params in place
@@ -601,7 +607,7 @@ def _partitioned_training(cuda, cfg, shape):
         assert int(off.sum()) <= max(1, b.numel() // 10_000)
         assert float((a - b).abs().max()) <= 2 * 3e-4 * 2
     assert got_c == want_c
-    assert (flash_attention.launches, flash_decode.launches) == before
+    assert (flash_attention.launches, flash_decode.launches, ssd_scan.launches) == before
 
 
 @pytest.mark.cuda
@@ -629,3 +635,74 @@ def test_partitioned_moe_train_step_on_card_matches_cpu(cuda, shape):
     from repro_torch.configs import get_config, reduced_config
     _partitioned_training(cuda, dataclasses.replace(
         reduced_config(get_config("olmoe_1b_7b"), experts=8), dtype="float32"), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [("mamba2_130m", {}), ("zamba2_2_7b", dict(layers=4))],
+                         ids=["ssm", "hybrid"])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_ssm_steps_on_card_match_cpu(cuda, shape, arch, kw):
+    """The same for reduced f32 ssm and hybrid models: 16 Mamba2 heads over
+    the model ranks (B3 on each rank's heads, y and the final state
+    gathered), the hybrid's shared block (4 MHA heads of 64) tensor-parallel
+    with its cache's sequence over "model"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    _partitioned_serving(cuda, dataclasses.replace(
+        reduced_config(get_config(arch), **kw), dtype="float32"), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [("mamba2_130m", {}), ("zamba2_2_7b", dict(layers=4))],
+                         ids=["ssm", "hybrid"])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_ssm_train_step_on_card_matches_cpu(cuda, shape, arch, kw):
+    """Two partitioned train steps of the reduced f32 ssm and hybrid models
+    (remat per Mamba2 layer; per hybrid segment) on the card against the
+    CPU ranks, as `_partitioned_training` holds them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    _partitioned_training(cuda, dataclasses.replace(
+        reduced_config(get_config(arch), **kw), dtype="float32"), shape)
+
+
+def _fixture_cases():
+    """tests/data/ssd_scan_reference.npz (tests/test_torch_ssd.py writes it
+    from the reference's Pallas kernel): {name: (dtype, chunk, inputs, y,
+    state)}, numpy f32."""
+    from pathlib import Path
+
+    import numpy as np
+    data = np.load(Path(__file__).resolve().parent / "data" / "ssd_scan_reference.npz")
+    out = {}
+    for name in sorted({k.split(".")[0] for k in data.files}):
+        inp = {k.split(".")[1]: data[k] for k in data.files if k.startswith(name + ".")}
+        out[name] = (str(inp.pop("dtype")), int(inp.pop("chunk")), inp, inp.pop("y"),
+                     inp.pop("state"))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["f32_96", "f32_200_init", "bf16_130_init"])
+def test_ssd_kernel_matches_the_reference_outputs(cuda, name):
+    """B3 on the card against the reference's own `ssd_scan_pallas` outputs
+    (interpret mode on a CPU, stored with their inputs): f32 to 2e-5
+    elementwise, bf16 to SSD_REL_TOL per (batch, head) on y and the state
+    (`kernels/checks.py`'s limits); one launch each."""
+    from repro_torch.kernels.checks import F32_TOL, SSD_REL_TOL, ssd_rel
+    dtype, chunk, inp, wy, wh = _fixture_cases()[name]
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in inp.items()}
+    if dtype == "bfloat16":
+        t.update({k: t[k].bfloat16() for k in ("x", "B", "C")})
+    before = ssd_scan.launches
+    y, h = ssd_scan(t["x"], t["dt"], t["A"], t["B"], t["C"], t["D"], chunk=chunk,
+                    init_state=t.get("init_state"), return_state=True)
+    assert ssd_scan.launches == before + 1
+    wy, wh = torch.from_numpy(wy).to(cuda), torch.from_numpy(wh).to(cuda)
+    if dtype == "bfloat16":
+        assert max(ssd_rel(y, h, wy, wh)) < SSD_REL_TOL
+    else:
+        torch.testing.assert_close(y, wy, atol=F32_TOL, rtol=F32_TOL)
+        torch.testing.assert_close(h, wh, atol=F32_TOL, rtol=F32_TOL)

@@ -327,11 +327,14 @@ def test_matrix_decode_combo_runs_on_both_meshes(arch):
     """The decode_32k record on both production meshes, and a train
     record: the partitioned families' (`tp.FAMILIES`) collective bytes by
     kind (counted by the partitioned steps: tests/test_torch_partition.py,
-    tests/test_torch_partition_train.py, tests/test_torch_partition_moe.py),
-    the others' null with a reason."""
+    tests/test_torch_partition_train.py, tests/test_torch_partition_moe.py,
+    tests/test_torch_partition_ssm.py), the others' null with a reason; the
+    partitioned families' train record at 2 units of depth (a hybrid unit:
+    `attn_every` layers)."""
     kinds = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
              "collective-permute", "total"}
-    partitioned = get_config(arch).family in tp.FAMILIES
+    cfg = get_config(arch)
+    partitioned = cfg.family in tp.FAMILIES
     for mp, n in ((False, 256), (True, 512)):
         rec = dryrun.run_combo(arch, "decode_32k", multi_pod=mp)
         assert rec["ok"] and rec["n_devices"] == n
@@ -340,7 +343,7 @@ def test_matrix_decode_combo_runs_on_both_meshes(arch):
         assert mem["fits"] == (mem["per_device_total"] <= 80e9)
         assert mem["temp_size_in_bytes"] > 0 and "estimate" in mem["temp_scope"]
         train = dryrun.run_combo(arch, TRAIN_SMALL, multi_pod=mp,
-                                 layers=2 if partitioned else None)
+                                 layers=2 * (cfg.attn_every or 1) if partitioned else None)
         for r in (rec, train):
             if partitioned:
                 assert set(r["collectives"]) == kinds

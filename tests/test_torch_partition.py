@@ -33,8 +33,8 @@ tests/test_torch_cuda.py, which imports no JAX.
     PYTHONPATH=src python tests/test_torch_partition.py --bytes
 
 prints the reference's collective bytes beside the port's for the reduced
-dense prefill and serve step and the reduced moe prefill (8 experts) on
-(2, 2) and (1, 4).
+dense prefill and serve step and the reduced moe (8 experts), ssm (16
+heads) and hybrid (two segments) prefills on (2, 2) and (1, 4).
 """
 import dataclasses
 import json
@@ -85,10 +85,16 @@ CONFIGS = {
     "vlm": ("internvl2_76b", dict(layers=2), 56),
     "swa": ("llama3_8b", dict(layers=2), 64),
     "phi3": ("phi3_14b", dict(layers=2, d_model=320, n_heads=40, n_kv=10), 40),
-    # tests/test_torch_partition_moe.py's olmoe-like config (8 experts), whose
-    # prefill `--bytes` compiles in the reference
+    # tests/test_torch_partition_moe.py's olmoe-like config (8 experts) and
+    # tests/test_torch_partition_ssm.py's ssm (16 heads) and hybrid (4
+    # layers, two segments) configs, whose prefill `--bytes` compiles in the
+    # reference
     "moe": ("olmoe_1b_7b", dict(layers=2, experts=8), 40),
+    "ssm": ("mamba2_130m", dict(layers=2), 40),
+    "hybrid": ("zamba2_2_7b", dict(layers=4), 40),
 }
+#: the configs whose prefill alone `--bytes` compiles
+BYTES_PREFILL = ("moe", "ssm", "hybrid")
 MESHES = [(1, 4), (2, 2), (4, 1), (2, 4), (1, 8)]
 
 
@@ -384,10 +390,11 @@ def test_lockstep_raises_on_a_rank_that_raises_or_strays():
         run_lockstep(mesh, broken)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_2_7b", "seamless_m4t_large_v2"])
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2"])
 def test_other_families_are_not_partitioned(arch, models):
-    """The families with no partitioned step yet (ssm, hybrid, audio) raise
-    on `Sharded` arguments (the moe family's: tests/test_torch_partition_moe.py)."""
+    """The family with no partitioned step yet (audio) raises on `Sharded`
+    arguments (the moe family's: tests/test_torch_partition_moe.py; ssm and
+    hybrid: tests/test_torch_partition_ssm.py)."""
     cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
     mesh = _mesh((2, 2))
     params = mdl.init_params(cfg, device="cpu")
@@ -476,14 +483,18 @@ def test_dry_run_records_carry_collective_bytes():
     for arch, shape in (("llama3_8b", "prefill_32k"), ("qwen2_7b", "prefill_32k"),
                         ("internvl2_76b", "decode_32k"), ("llama3_8b", "long_500k"),
                         ("llama3_8b", "train_4k"), ("olmoe_1b_7b", "train_4k"),
-                        ("olmoe_1b_7b", "decode_32k")):
+                        ("olmoe_1b_7b", "decode_32k"), ("mamba2_130m", "prefill_32k"),
+                        ("zamba2_2_7b", "decode_32k")):
         rec = dryrun.run_combo(arch, shape)
         assert rec["ok"] and set(rec["collectives"]) == set(KINDS) | {"total"}
         assert rec["collectives"]["total"] > 0 and "collectives_reason" not in rec
     # the 28 heads of qwen2 on 16 model ranks take the sequence fallback: an
     # all-to-all moves q's rows (and wo's inputs back)
     assert dryrun.run_combo("qwen2_7b", "prefill_32k")["collectives"]["all-to-all"] > 0
-    for arch, shape in (("mamba2_130m", "prefill_32k"),):
+    # mamba2_130m's 24 heads on 16 model ranks take the sequence fallback:
+    # the ranks' final states and summed decays are all-gathered
+    assert dryrun.run_combo("mamba2_130m", "prefill_32k")["collectives"]["all-gather"] > 0
+    for arch, shape in (("seamless_m4t_large_v2", "prefill_32k"),):
         rec = dryrun.run_combo(arch, shape)
         assert rec["collectives"] is None
         assert "not ported yet" in rec["collectives_reason"]
@@ -494,11 +505,11 @@ PSUM_SCATTER = {"data_dim1": ("data", 1), "model_dim1": ("model", 1),
                 "model_dim2": ("model", 2), "both_dim1": (("data", "model"), 1)}
 
 
-def _jax_outputs(path, moe=False):
+def _jax_outputs(path, more=False):
     """psum_scatter of jax.lax on a (4, 2) mesh, and the reference's
     collective bytes of its partitioned dense prefill and serve step (with
-    `moe`, also of the moe config's prefill) on (2, 2) and (1, 4) meshes of
-    four devices; needs 8 XLA devices."""
+    `more`, also of the BYTES_PREFILL configs' prefill) on (2, 2) and (1, 4)
+    meshes of four devices; needs 8 XLA devices."""
     from jax.sharding import Mesh, NamedSharding
     from jax.sharding import PartitionSpec as P
 
@@ -516,7 +527,7 @@ def _jax_outputs(path, moe=False):
             fn, mesh=mesh, in_specs=(P(("data", "model")),),
             out_specs=P(("data", "model")), check_vma=False)(x))
     ref = {}
-    for name in ("dense", "moe") if moe else ("dense",):
+    for name in ("dense",) + (BYTES_PREFILL if more else ()):
         jcfg, _ = _configs(name)
         pre, dec = _shapes(B, PROMPT, name)
         s_max = CONFIGS[name][2]
@@ -587,9 +598,10 @@ def main(argv):
                    PYTHONPATH=str(ROOT / "src"))
         path = ROOT / "build" / "partition_reference.npz"
         path.parent.mkdir(exist_ok=True)
-        subprocess.run([sys.executable, __file__, str(path), "--moe"], env=env, check=True)
+        subprocess.run([sys.executable, __file__, str(path), "--more"], env=env, check=True)
         ref = json.loads(np.load(path)["reference_bytes"].tobytes())
-        for name, kinds in (("dense", ("prefill", "serve")), ("moe", ("prefill",))):
+        for name, kinds in [("dense", ("prefill", "serve"))] + [(n, ("prefill",))
+                                                               for n in BYTES_PREFILL]:
             _, cfg = _configs(name)
             pre, dec = _shapes(B, PROMPT, name)
             for shape in ((2, 2), (1, 4)):
@@ -602,7 +614,7 @@ def main(argv):
                     print(json.dumps({"config": name, "mesh": tag, "step": step,
                                       "reference": ref[f"{step}_{tag}"], "port": port[step]}))
         return 0
-    _jax_outputs(argv[0], moe="--moe" in argv)
+    _jax_outputs(argv[0], more="--more" in argv)
     return 0
 
 

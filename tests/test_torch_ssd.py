@@ -13,9 +13,13 @@ dt in Mamba2's initial range (softplus(N(0, 1) - 4)), where the chunked and
 sequential forms agree that closely.
 
 The hand CUDA kernels run only on the card: tests/test_torch_cuda.py holds
-them to `torch_ssd_scan` there.
+them to `torch_ssd_scan` there, and to the reference's own Pallas outputs
+that this file writes, run as a script, to tests/data/ssd_scan_reference.npz
+(f32 and bf16, one with an entering state; the plain version is held to
+them here).
 """
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +30,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.ssd_kernel import ssd_scan_pallas
 from repro_torch.kernels import ops
-from repro_torch.kernels.checks import SSD_REL_TOL, ssd_faults, ssd_inputs, ssd_judge
+from repro_torch.kernels.checks import (F32_TOL, SSD_REL_TOL, ssd_faults, ssd_inputs,
+                                        ssd_judge, ssd_rel)
 from repro_torch.kernels.ssd_kernel import (chunk_len, split_ssd, ssd_scan,
                                             torch_ssd_scan)
 
@@ -266,3 +271,95 @@ def test_bf16_emulation_sees_the_carry_faults_at_slow_decay(ns, nh, b, s):
     assert min(got["fault_carry"] + got["fault_init"]) > 10 * SSD_REL_TOL
     torch.testing.assert_close(faults["carry"][0][:, :L], wy[:, :L],
                                atol=2e-5, rtol=2e-5)
+
+
+# ---- the reference's own outputs, for the card ----------------------------------
+#: the reference's `ssd_scan_pallas` outputs (interpret mode, CPU) with their
+#: inputs, written by this file run as a script; tests/test_torch_cuda.py holds
+#: the card's kernel to them, which imports no JAX
+FIXTURE = Path(__file__).resolve().parent / "data" / "ssd_scan_reference.npz"
+#: name -> (dtype, b, s, nh, hd, ns, chunk, entering state): the f32 kernel's
+#: 64-token chunks against the reference's 32 / 64, the bf16 kernel's
+#: chunk_len (64 at ns 32) against 64, ragged lengths
+FIXTURE_CASES = {
+    "f32_96": ("float32", 2, 96, 2, 32, 16, 32, False),
+    "f32_200_init": ("float32", 1, 200, 2, 64, 64, 64, True),
+    "bf16_130_init": ("bfloat16", 1, 130, 2, 64, 32, 64, True),
+}
+
+
+def _fixture_inputs(name):
+    """Numpy f32 inputs from a seed, dt in Mamba2's initial range
+    (softplus(N(0, 1) - 4)); a bf16 case's x, B and C rounded to bf16
+    (exact in f32)."""
+    dtype, b, s, nh, hd, ns, _, init = FIXTURE_CASES[name]
+    rng = np.random.default_rng(len(name) * 1000 + s)
+
+    def t(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+    out = dict(x=t(b, s, nh, hd), dt=np.logaddexp(t(b, s, nh) - 4, 0).astype(np.float32),
+               A=-np.exp(t(nh)), B=t(b, s, ns), C=t(b, s, ns), D=t(nh))
+    if init:
+        out["init_state"] = t(b, nh, hd, ns) * 0.1
+    if dtype == "bfloat16":
+        for k in ("x", "B", "C"):
+            out[k] = torch.from_numpy(out[k]).bfloat16().float().numpy()
+    return out
+
+
+def fixture_cases():
+    """{name: (dtype, chunk, inputs, y, state)} from FIXTURE, numpy f32 (a
+    bf16 case's y is the reference's bf16 output widened)."""
+    data = np.load(FIXTURE)
+    out = {}
+    for name, (dtype, *_, chunk, init) in FIXTURE_CASES.items():
+        keys = ("x", "dt", "A", "B", "C", "D") + (("init_state",) if init else ())
+        out[name] = (dtype, chunk, {k: data[f"{name}.{k}"] for k in keys},
+                     data[f"{name}.y"], data[f"{name}.state"])
+    return out
+
+
+def _write_fixture(path):
+    from jax import numpy as jnp_
+    arrays = {}
+    for name, (dtype, *_, chunk, init) in FIXTURE_CASES.items():
+        inp = _fixture_inputs(name)
+        j = {k: jnp_.asarray(v) for k, v in inp.items()}
+        if dtype == "bfloat16":
+            j.update({k: j[k].astype(jnp_.bfloat16) for k in ("x", "B", "C")})
+        y, h = ssd_scan_pallas(j["x"], j["dt"], j["A"], j["B"], j["C"], j["D"], chunk=chunk,
+                               init_state=j.get("init_state"), return_state=True,
+                               interpret=True)
+        arrays.update({f"{name}.{k}": v for k, v in inp.items()})
+        arrays[f"{name}.y"] = np.asarray(y.astype(jnp_.float32))
+        arrays[f"{name}.state"] = np.asarray(h)
+        arrays[f"{name}.chunk"], arrays[f"{name}.dtype"] = np.array(chunk), np.array(dtype)
+    path.parent.mkdir(exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    print(f"{path}: {path.stat().st_size} bytes")
+
+
+@pytest.mark.parametrize("name", list(FIXTURE_CASES))
+def test_plain_version_matches_the_reference_fixture(name):
+    """`torch_ssd_scan` on the fixture's inputs against the reference's
+    outputs stored beside them, within `kernels/checks.py`'s limits for the
+    card's kernels (f32: F32_TOL elementwise; bf16: SSD_REL_TOL per (batch,
+    head) on y and the state); the stored inputs are this file's."""
+    dtype, chunk, inp, wy, wh = fixture_cases()[name]
+    for k, v in _fixture_inputs(name).items():
+        np.testing.assert_array_equal(inp[k], v, err_msg=k)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    if dtype == "bfloat16":
+        t.update({k: t[k].bfloat16() for k in ("x", "B", "C")})
+    y, h = torch_ssd_scan(t["x"], t["dt"], t["A"], t["B"], t["C"], t["D"], chunk=chunk,
+                          init_state=t.get("init_state"), return_state=True)
+    if dtype == "bfloat16":
+        assert max(ssd_rel(y, h, torch.from_numpy(wy), torch.from_numpy(wh))) < SSD_REL_TOL
+    else:
+        np.testing.assert_allclose(y.numpy(), wy, atol=F32_TOL, rtol=F32_TOL)
+        np.testing.assert_allclose(h.numpy(), wh, atol=F32_TOL, rtol=F32_TOL)
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_ssd.py
+    _write_fixture(FIXTURE)
