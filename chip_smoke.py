@@ -203,7 +203,8 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                over the rank's heads or rows; the hybrid's shared block
                tensor-parallel) on ranks sharing the card, from shards of
                one set of random weights: mamba2_130m and zamba2_2_7b at
-               full width and depth in bf16 on (1, 4) and (2, 2) (B3 on 6
+               full width and PS_LAYERS (8 of 24, 18 of 54) in bf16 on
+               (1, 4) and (2, 2) (B3 on 6
                / 20 heads per rank on (1, 4)), a prefill of 4 x 2048 into a
                cache of 2080 and PS_STEPS serve steps, against the
                unpartitioned steps (B3, B1, B2): prefill logits, the conv
@@ -226,12 +227,39 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                mistral_7b's, zamba2_2_7b at PS_TRAIN_LAYERS (one segment
                under one remat) with in_proj's gradient sum over "model"
                dropping the last rank's partial reading above the limit on
-               (1, 4), and mamba2_130m at PS_SSM_TRAIN_LAYERS.
+               (1, 4), and mamba2_130m at PS_SSM_TRAIN_LAYERS;
+24. partition_audio — the audio family's partitioned steps (``models/
+               tp._encode``, ``_dec_layer``: the encoder's residual whole
+               over "model", its attention unmasked over the frames, the
+               decoder's cross K/V projected per rank's heads and moved
+               into the cross cache by the prefill's all-to-all, the serve
+               step's cross decode over the rank's slice of the cross
+               cache) on ranks sharing the card, from shards of one set of
+               random weights: seamless_m4t_large_v2 at full width and
+               depth (24 + 24 layers) in bf16 on (1, 4) and (2, 2),
+               PARTITION_BATCH x PA_FRAMES frames and a BOS token into a
+               self cache of 1024 and the cross cache, PS_STEPS serve
+               steps, against the unpartitioned steps (B1, B2): prefill
+               logits, the self and cross K/V per (layer, row, head) and
+               each serve step's logits within PARTITION_REL_TOL with the
+               same first token, B1 exactly (24 + 2 x 24) x ranks per
+               prefill, no kernel in a serve step, the collective bytes
+               equal to the dry run's, the last model rank's partial
+               dropped from the first encoder all-reduce and the last
+               rank's slice of the cross cache dropped from
+               PARTITION_FAULT_STEPS serve steps' merge each reading above
+               the limit; f32 at PA_F32_LAYERS + PA_F32_LAYERS within
+               PARTITION_F32_TOL with every greedy token; the FSDP train
+               step as ``partition_train`` holds mistral_7b's, at
+               PA_TRAIN_LAYERS + PA_TRAIN_LAYERS layers, PA_FRAMES frames
+               and 512 decoder tokens a sequence, the encoder's output
+               detached in the decoder reading above the limit on every
+               encoder leaf on (1, 4).
 
 Then one JSON line with every kernel's numbers (launches summed over the
 serve, claims, cluster, overhead, ssm, hybrid, moe, audio, vlm, ring, gang,
-dryrun, partition, partition_moe and partition_ssm phases; the train
-phases launch none)
+dryrun, partition, partition_moe, partition_ssm and partition_audio phases;
+the train phases launch none)
 and, last, the result line ``{"ok": true, "device": {...}}``.  The script exits non-zero without a
 result line when CUDA is absent or the port's sources are not beside it.
 """
@@ -303,7 +331,8 @@ SHARDED_FAULT_STEPS = 4
 #: PARTITION_F32_LAYERS.  qwen2_7b's 28 heads on (1, 8) take the rules'
 #: sequence fallback at PARTITION_F32_LAYERS layers
 #: (bf16 at 8 of 80 layers: cut from 24 to keep the script within its time
-#: limit once partition_ssm runs)
+#: limit once partition_ssm runs; at 4 layers one of the 4 rows' first
+#: token flips on (1, 4), so the cut stops at 8)
 PARTITION_LAYERS, PARTITION_F32_LAYERS = 8, 4
 PARTITION_BATCH, PARTITION_PROMPT, PARTITION_STEPS = 4, 2048, 32
 PARTITION_CACHE = PARTITION_PROMPT + PARTITION_STEPS
@@ -326,9 +355,9 @@ PARTITION_FAULT_STEPS = 2
 #: update runs in place; the whole-tensor step alone peaks at 48.4 GB at
 #: 32 layers), PT_BATCH x PT_SEQ tokens, remat, partitioned over each of
 #: PT_MESHES (data, model) on ranks that share the card; f32 at
-#: PT_F32_LAYERS, two steps (bf16 at 4 layers: cut from 8, as
-#: PARTITION_LAYERS is, to keep the script within its time limit)
-PT_LAYERS, PT_F32_LAYERS = 4, 2
+#: PT_F32_LAYERS, two steps (bf16 at 2 layers: cut from 8 to 4 and then to
+#: 2, as PARTITION_LAYERS is, to keep the script within its time limit)
+PT_LAYERS, PT_F32_LAYERS = 2, 2
 PT_BATCH, PT_SEQ = 4, 2048
 PT_MESHES = ((1, 4), (2, 2), (4, 1))
 #: partition_train: bf16 loss against the whole-tensor step's, relative
@@ -338,26 +367,38 @@ PT_LOSS_TOL = 1e-2
 #: of 48 (~37 GB in bf16) on (1, 4), olmoe's train step at PM_TRAIN_LAYERS
 #: of 16 (f32 at PM_TRAIN_F32_LAYERS) on PT_MESHES; the PARTITION_* shapes.
 #: Depth is cut for the script's time limit, as PARTITION_LAYERS is: the
-#: serving run from 16 layers and the train step from 4 (at 8 it took 276 s
-#: of the phase's 451 s on the card, H100 80GB HBM3, 700 W)
+#: serving run from 16 layers to 4 (at 2 one of the 4 rows' first token
+#: flips on (1, 4), so the cut stops at 4) and the train step from 8 to 4,
+#: 2 and then 1 (at 8 it took 276 s of the phase's 451 s on the card, H100
+#: 80GB HBM3, 700 W)
 PM_MESHES = ((1, 4), (2, 2))
 PM_LAYERS, PM_F32_LAYERS, PM_LLAMA4_LAYERS = 4, 4, 1
-PM_TRAIN_LAYERS, PM_TRAIN_F32_LAYERS = 2, 2
+PM_TRAIN_LAYERS, PM_TRAIN_F32_LAYERS = 1, 1
 #: peak GB measured by the train, vlm and ring phases, read by dryrun
-#: partition_ssm: mamba2_130m at full depth and zamba2_2_7b at full width
-#: and depth (54 layers, 9 shared-block uses) in bf16 on PM_MESHES, the
+#: partition_ssm: mamba2_130m and zamba2_2_7b at full width and
+#: PS_LAYERS (cut from their full 24 and 54 layers for the script's time
+#: limit; zamba2 at 3 of 9 shared-block uses) in bf16 on PM_MESHES, the
 #: PARTITION_* shapes; f32 at PS_F32_LAYERS (zamba2: one segment);
 #: mamba2_130m's 24 heads on (1, 16), the rules' sequence fallback (the
 #: dry run's pod16x16 case), at PS_ROWS_LAYERS in bf16 and f32; the FSDP
 #: train step of zamba2 at PS_TRAIN_LAYERS (one segment) and of mamba2_130m
 #: at PS_SSM_TRAIN_LAYERS of 24 on PT_MESHES, f32 at the least depth
 #: (zamba2 6, mamba2_130m 1)
+PS_LAYERS = {"mamba2_130m": 8, "zamba2_2_7b": 18}
 PS_F32_LAYERS = {"mamba2_130m": 4, "zamba2_2_7b": 6}
 #: serve steps per run (a partitioned zamba2 step takes ~1.2 s of host time
 #: on the shared card)
 PS_STEPS = 8
 PS_ROWS_MESH, PS_ROWS_LAYERS = (1, 16), 4
-PS_TRAIN_LAYERS, PS_SSM_TRAIN_LAYERS = 6, 8
+PS_TRAIN_LAYERS, PS_SSM_TRAIN_LAYERS = 6, 4
+#: partition_audio: seamless_m4t_large_v2 at full width and depth (24
+#: encoder and 24 decoder layers) in bf16 on PM_MESHES, PARTITION_BATCH x
+#: PA_FRAMES frames and a BOS token into the reference's self cache of
+#: AUDIO_SELF_CACHE and a cross cache of PA_FRAMES, PS_STEPS serve steps;
+#: f32 at PA_F32_LAYERS encoder and decoder layers; the FSDP train step at
+#: PA_TRAIN_LAYERS of each (PA_FRAMES frames and AUDIO_DECODER_TRAIN_LEN
+#: decoder tokens per sequence) on PT_MESHES, f32 at the same depth
+PA_FRAMES, PA_F32_LAYERS, PA_TRAIN_LAYERS = 1024, 4, 2
 PEAK_GB = {}
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 BF16_FLOPS = 989e12
@@ -566,7 +607,10 @@ def phase_kernels(torch, dev):
     # q_offset 1792 against all 2048 keys, 28 q / 4 KV heads); the
     # partitioned moe prefill's on 4 model ranks: olmoe_1b_7b (MHA 4) and
     # llama4_maverick_400b_a17b (10 q / 2 KV heads); the partitioned hybrid
-    # prefill's shared block on 4 model ranks: zamba2_2_7b (MHA 8, D 80).
+    # prefill's shared block on 4 model ranks: zamba2_2_7b (MHA 8, D 80);
+    # the partitioned audio prefill's on 4 model ranks: seamless_m4t_large_v2's
+    # encoder (MHA 4, D 64, unmasked over 1024 frames) and its decoder's
+    # cross attention (one query row across those frames).
     # q is a transposed (B, S, H, D) view, as attention_block passes it.
     for name, B, H, KV, D, sq, sk, qo, win, ragged, causal in (
             ("fa_causal_1536", 1, 32, 8, 128, 1536, 1536, 0, 0, False, True),
@@ -597,7 +641,11 @@ def phase_kernels(torch, dev):
             ("fa_partition_moe_llama4_10q2kv_causal_2048", PARTITION_BATCH, 10, 2, 128,
              PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True),
             ("fa_partition_zamba2_mha8_d80_causal_2048", PARTITION_BATCH, 8, 8, 80,
-             PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True)):
+             PARTITION_PROMPT, PARTITION_PROMPT, 0, 0, False, True),
+            ("fa_partition_audio_enc_mha4_noncausal_1024_d64", PARTITION_BATCH, 4, 4, 64,
+             PA_FRAMES, PA_FRAMES, 0, 0, False, False),
+            ("fa_partition_audio_cross_sq1_mha4_1024_d64", PARTITION_BATCH, 4, 4, 64, 1,
+             PA_FRAMES, 0, 0, False, False)):
         q = rn(B, sq, H, D).transpose(1, 2)
         k, v = rn(B, KV, sk, D), rn(B, KV, sk, D)
         kl = [sk, sk - 77] if ragged else [sk] * B
@@ -1327,12 +1375,15 @@ def _params_close(got, want, lr=3e-4):
     equal weights, held to rtol = atol = TRAIN_TOL but for at most 1e-4 of
     a leaf's elements (one at least), each within 2 x lr: where a
     gradient is ~0, its rounding on either device decides the sign of
-    m̂ / sqrt(v̂) ~ ±1, and so an update of ±lr."""
+    m̂ / sqrt(v̂) ~ ±1, and so an update of ±lr.  Compared on `got`'s
+    device (the host's elementwise passes over GBs of f32 params took most
+    of each partitioned f32 train case's minute on the card's machine)."""
     import torch
     from repro_torch.models.model import param_leaves
     worst, off_total = 0.0, 0
     for g, w in zip(param_leaves(got), param_leaves(want)):
-        g, w = g.detach().cpu().float(), w.detach().cpu().float()
+        g = g.detach().float()
+        w = w.detach().to(g.device).float()
         diff = (g - w).abs()
         off = int((~torch.isclose(g, w, rtol=TRAIN_TOL, atol=TRAIN_TOL)).sum())
         if off > max(1, w.numel() // 10_000) or float(diff.max()) > 2 * lr:
@@ -2204,6 +2255,7 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
     from repro_torch.models import init_cache, init_params, tp
     from repro_torch.sp.common import GangMesh
 
+    t_case = time.perf_counter()
     bf16 = dtype == "bfloat16"
     tol = PARTITION_REL_TOL if bf16 else PARTITION_F32_TOL
     B, S, N, C = PARTITION_BATCH, PARTITION_PROMPT, PARTITION_STEPS, PARTITION_CACHE
@@ -2366,8 +2418,10 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
         if bf16:
             # the dry run's count on meta ranks (run_combo's numbers),
             # the prefill's with the card's cache of C positions
+            t_dry = time.perf_counter()
             recs = {"prefill": dryrun.collective_bytes(cfg, pre, mesh, max_len=C),
                     "serve_step": dryrun.collective_bytes(cfg, dec, mesh)}
+            row["dry_run_count_s"] = time.perf_counter() - t_dry
             row["dry_run_collectives_equal"] = recs == row["collective_bytes"]
             if not row["dry_run_collectives_equal"]:
                 fails.append(f"collective bytes on the card {row['collective_bytes']} "
@@ -2432,6 +2486,7 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
                                  + f" (readings: {json.dumps(row, default=str)[:3000]})")
     del params, want, ref_kv, lg
     torch.cuda.empty_cache()
+    res["case_s"] = time.perf_counter() - t_case
     return res, launches
 
 
@@ -2511,13 +2566,22 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
     from repro_torch.sp.common import GangMesh, as_axes
     from repro_torch.training import adamw_init
 
+    t_case = time.perf_counter()
     full = get_config(arch)
+    audio = full.family == "audio"
     B, S = PT_BATCH, PT_SEQ
-    shape = ShapeConfig(f"train_{B}x{S}", S, B, "train")
+    if audio:
+        # the decoder's tokens; the encoder takes frontend_tokens frames
+        S = steps.AUDIO_DECODER_TRAIN_LEN
+    shape = ShapeConfig(f"train_{B}x{S}", full.frontend_tokens if audio else S, B, "train")
+
+    def depth(n, **kw):
+        """`full` at n layers (audio: n encoder and n decoder layers)."""
+        return dataclasses.replace(full, num_layers=n, encoder_layers=n if audio else 0, **kw)
     runs = {}
     # bf16: the whole-tensor step's gradients and one timed step, then per
     # mesh the partitioned gradients and one timed step from a copy
-    cfg = dataclasses.replace(full, num_layers=layers)
+    cfg = depth(layers)
     params = init_params(cfg, seed=0, device=dev)
     batch = train.make_batch(cfg, B, S, np.random.default_rng(0), dev)
     moe = cfg.family == "moe"
@@ -2576,7 +2640,9 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
                 if profile else "not measured")
         del sp, so
         torch.cuda.empty_cache()
+        t_dry = time.perf_counter()
         record = dryrun.collective_bytes(cfg, shape, mesh)
+        dry_s = time.perf_counter() - t_dry
         loss = float(info["loss"])
         row = dict(loss=loss, loss_rel_err=abs(loss - w_loss) / abs(w_loss),
                    grad_norm=float(info["grad_norm"]),
@@ -2585,6 +2651,7 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
                    grads_rel_err_worst={n: e for e, n in worst}, grads_s=grads_s, step_s=step_s,
                    card_peak_gb=peak, rank_gb=dict(rank_gb, grads_gb=rank_gb["params_gb"]),
                    collective_bytes=counted, dry_run_collectives_equal=record == counted,
+                   dry_run_count_s=dry_s,
                    step_profile=prof, **routing)
         fails = []
         if moe and max(routing["routing_flip_share_per_layer"]) > ROUTING_FLIP_TOL:
@@ -2629,6 +2696,20 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
             if min(hit) <= PARTITION_REL_TOL:
                 fails.append(f"{model_psum_fault}'s gradient without the last model rank's "
                              f"partial reads {min(hit):.3e}, inside the limit")
+        if audio and mshape == (1, 4):
+            # the encoder's output detached inside every decoder layer: no
+            # gradient reaches the encoder
+            with _detaching_encoder():
+                _, fg = partition.loss_and_grads(cfg, p, b)
+            ferrs = _grad_errs(partition.unshard_tree(fg), w_grads)
+            del fg
+            hit = [e for e, (path, _) in zip(ferrs, _spec_leaves(p.specs))
+                   if path[0] in ("encoder", "enc_norm")]
+            row["detached_encoder_rel_err_min"] = min(hit)
+            row["detached_encoder_leaves"] = len(hit)
+            if min(hit) <= PARTITION_REL_TOL:
+                fails.append(f"the encoder's gradients with its output detached in the "
+                             f"decoder read {min(hit):.3e}, inside the limit")
         bf16[tag] = row
         del p, b
         torch.cuda.empty_cache()
@@ -2636,12 +2717,15 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
             raise AssertionError(f"partition_train: {arch} bf16 on {tag}: " + "; ".join(fails)
                                  + f" (readings: {json.dumps(row, default=str)[:3000]})")
     runs[f"{arch}_bf16"] = dict(layers=cfg.num_layers, layers_full=full.num_layers,
-                                batch=B, seq=S, whole=whole, **bf16)
+                                batch=B, seq=S, frames=shape.seq_len if audio else 0,
+                                whole=whole, **bf16)
+    runs[f"{arch}_bf16"]["case_s"] = time.perf_counter() - t_case
+    t_case = time.perf_counter()
     del params, w_grads, batch
     torch.cuda.empty_cache()
 
     # f32: two steps of the whole-tensor step and of each partitioned one
-    cfg = dataclasses.replace(full, num_layers=f32_layers, dtype="float32")
+    cfg = depth(f32_layers, dtype="float32")
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(1)
     batches = [train.make_batch(cfg, B, S, rng, dev) for _ in range(2)]
@@ -2690,7 +2774,8 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
         f32[tag] = row
         del sp, so, got, base
         torch.cuda.empty_cache()
-    runs[f"{arch}_f32"] = dict(layers=cfg.num_layers, batch=B, seq=S, tol=TRAIN_TOL, **f32)
+    runs[f"{arch}_f32"] = dict(layers=cfg.num_layers, batch=B, seq=S, tol=TRAIN_TOL, **f32,
+                               case_s=time.perf_counter() - t_case)
     del params, batches, want
     torch.cuda.empty_cache()
     return runs
@@ -2855,6 +2940,7 @@ def _partition_ssm_case(torch, dev, arch, layers, dtype, meshes):
     from repro_torch.models import init_cache, init_params, tp
     from repro_torch.sp.common import GangMesh
 
+    t_case = time.perf_counter()
     bf16 = dtype == "bfloat16"
     tol = PARTITION_REL_TOL if bf16 else PARTITION_F32_TOL
     B, S, N, C = PARTITION_BATCH, PARTITION_PROMPT, PS_STEPS, PARTITION_CACHE
@@ -2972,8 +3058,10 @@ def _partition_ssm_case(torch, dev, arch, layers, dtype, meshes):
                    rank_argument_gb=rank_bytes / 1e9,
                    collective_bytes=dict(prefill=pre_bytes, serve_step=step_bytes[0]))
         if bf16:
+            t_dry = time.perf_counter()
             recs = {"prefill": dryrun.collective_bytes(cfg, pre, mesh, max_len=C),
                     "serve_step": dryrun.collective_bytes(cfg, dec, mesh)}
+            row["dry_run_count_s"] = time.perf_counter() - t_dry
             row["dry_run_collectives_equal"] = recs == row["collective_bytes"]
             if not row["dry_run_collectives_equal"]:
                 fails.append(f"collective bytes on the card {row['collective_bytes']} "
@@ -3014,6 +3102,7 @@ def _partition_ssm_case(torch, dev, arch, layers, dtype, meshes):
                                  + f" (readings: {json.dumps(row, default=str)[:3000]})")
     del params, want, ref, lg
     torch.cuda.empty_cache()
+    res["case_s"] = time.perf_counter() - t_case
     return res, launches
 
 
@@ -3024,7 +3113,7 @@ def phase_partition_ssm(torch, dev, smi):
     runs, launches = {}, dict.fromkeys(_counters(), 0)
     cases = []
     for arch in ("mamba2_130m", "zamba2_2_7b"):
-        cases += [(f"{arch}_bf16", arch, get_config(arch).num_layers, "bfloat16", PM_MESHES),
+        cases += [(f"{arch}_bf16", arch, PS_LAYERS[arch], "bfloat16", PM_MESHES),
                   (f"{arch}_f32", arch, PS_F32_LAYERS[arch], "float32", PM_MESHES)]
     cases += [(f"mamba2_130m_rows_{dt}", "mamba2_130m", PS_ROWS_LAYERS, dt, (PS_ROWS_MESH,))
               for dt in ("bfloat16", "float32")]
@@ -3039,9 +3128,302 @@ def phase_partition_ssm(torch, dev, smi):
                    profile=False))
     _say("partition_ssm", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
          f32_tol=PARTITION_F32_TOL, loss_tol=PT_LOSS_TOL,
-         cut=f"f32 serving runs at {PS_F32_LAYERS} layers; the sequence fallback at "
+         cut=f"bf16 serving runs at {PS_LAYERS} layers, f32 at {PS_F32_LAYERS}; the "
+         f"sequence fallback at "
          f"{PS_ROWS_LAYERS} of 24; zamba2_2_7b's train step {PS_TRAIN_LAYERS} of 54 "
          f"(one segment; f32 the same), mamba2_130m's {PS_SSM_TRAIN_LAYERS} of 24 (f32 1)",
+         runs=runs, launches=launches, phase_s=time.perf_counter() - t0)
+    return launches
+
+
+@contextlib.contextmanager
+def _detaching_encoder():
+    """Within: every decoder layer (`tp._dec_layer`) reads the encoder's
+    output detached, so no gradient reaches the encoder."""
+    from repro_torch.models import tp
+    layer = tp._dec_layer
+
+    def detaching(rk, cfg, pl, p, ps, x, enc, *a, **kw):
+        return layer(rk, cfg, pl, p, ps, x, enc.detach(), *a, **kw)
+    tp._dec_layer = detaching
+    try:
+        yield
+    finally:
+        tp._dec_layer = layer
+
+
+@contextlib.contextmanager
+def _dropping_encoder_partial(frames, d):
+    """Within: the last model rank's partial left out of the first encoder
+    all-reduce (layer 0's wo sum, (b, frames, d)) of every rank."""
+    import threading
+
+    from repro_torch.launch import partition
+    psum, seen, lock = partition.Rank.psum, set(), threading.Lock()
+
+    def dropping(self, x, axes):
+        if tuple(x.shape[1:]) == (frames, d) and "model" in axes:
+            with lock:
+                first = self.rank not in seen
+                seen.add(self.rank)
+            if first and self.index("model") == self.size("model") - 1:
+                x = x.new_zeros(x.shape)
+        return psum(self, x, axes)
+    partition.Rank.psum = dropping
+    try:
+        yield seen
+    finally:
+        partition.Rank.psum = psum
+
+
+@contextlib.contextmanager
+def _dropping_cross_slice(cross_k):
+    """Within: the serve step's cross decode over `cross_k`'s storage (a
+    sharded cross cache) leaves the last rank's slice out of the merge
+    (its keys masked in its partial)."""
+    from repro_torch.models import tp
+    decode, hits = tp.distributed_decode_local, []
+
+    def dropping(q, k, v, lens, **kw):
+        if k[0].untyped_storage().data_ptr() == cross_k.untyped_storage().data_ptr():
+            hits.append(1)
+            lens = lens[:-1] + [lens[-1].new_zeros(lens[-1].shape)]
+        return decode(q, k, v, lens, **kw)
+    tp.distributed_decode_local = dropping
+    try:
+        yield hits
+    finally:
+        tp.distributed_decode_local = decode
+
+
+def _first_tokens(got, want):
+    """The greedy tokens of logits `got` against `want` (rows, vocab): rows
+    whose argmax agrees, and whether it agrees in every row whose margin in
+    `want` (top-1 minus top-2) exceeds twice the row's largest |got -
+    want|, where no rounding of that size can reorder the top two (a row
+    under that margin is a near tie: its token is reported, not held)."""
+    top2 = want.float().topk(2, -1).values
+    margin = top2[:, 0] - top2[:, 1]
+    moved = (got.float() - want.float()).abs().amax(-1)
+    same = got.argmax(-1) == want.argmax(-1)
+    clear = margin > 2 * moved
+    return dict(rows_same=int(same.sum()), rows=int(same.numel()),
+                clear_rows=int(clear.sum()), clear_rows_same=bool(same[clear].all()),
+                margins=margin.tolist(), max_logit_moves=moved.tolist())
+
+
+def _audio_caches(cache, S):
+    """Copies of an audio cache's prefill state: the self K/V's first S
+    positions, the cross K/V."""
+    out = {k: cache[k][:, :, :, :S].clone() for k in ("k", "v")}
+    out.update({k: cache[k].clone() for k in ("cross_k", "cross_v")})
+    return out
+
+
+def _partition_audio_case(torch, dev, layers, dtype, meshes):
+    """seamless_m4t_large_v2 at full width, `layers` encoder and decoder
+    layers, in `dtype`: the unpartitioned prefill of PARTITION_BATCH x
+    PA_FRAMES frames and a BOS token (B1) and PS_STEPS greedy serve steps
+    (B2), then per mesh shape the same from shards of the same weights on
+    ranks that share the card: launches exact (B1 (encoder + 2 x decoder
+    layers) x ranks per prefill, no kernel in a serve step), the prefill's
+    logits, its self and cross K/V per (layer, row, head) and each serve
+    step's logits against the unpartitioned run (bf16: the first token
+    equal; f32: every token), the collective bytes against the dry run's
+    (bf16), and on the first mesh in bf16 the planted faults: the last
+    model rank's partial dropped from the first encoder all-reduce (the
+    prefill's logits) and the last rank's slice of the cross cache dropped
+    from PARTITION_FAULT_STEPS serve steps' merge; a profiled serve step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.checks import rel_err
+    from repro_torch.launch import dryrun, partition, steps
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.sp.common import GangMesh
+
+    t_case = time.perf_counter()
+    bf16 = dtype == "bfloat16"
+    tol = PARTITION_REL_TOL if bf16 else PARTITION_F32_TOL
+    B, F, N, C = PARTITION_BATCH, PA_FRAMES, PS_STEPS, steps.AUDIO_SELF_CACHE
+    cfg = dataclasses.replace(get_config("seamless_m4t_large_v2"), num_layers=layers,
+                              encoder_layers=layers, dtype=dtype)
+    V, kinds = cfg.vocab_size, cfg.encoder_layers + 2 * cfg.num_layers
+    pre = ShapeConfig(f"prefill_{B}x{F}", F, B, "prefill")
+    dec = ShapeConfig(f"decode_{B}x{F}", F, B, "decode")
+    params = init_params(cfg, seed=0, device=dev)
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, V, (B, 1), generator=g).to(dev),
+             "frames": torch.randn((B, F, cfg.d_model), generator=g).to(
+                 dev, getattr(torch, dtype))}
+    prefill, serve = steps.build_prefill_step(cfg, pre), steps.build_serve_step(cfg, dec)
+    cache = init_cache(cfg, B, C, enc_len=F, device=dev)
+    (lg, cache), pre_s, counts = _run_counted(torch, lambda: prefill(params, batch, cache))
+    _expect("partition_audio", f"unpartitioned {dtype} flash_attention per prefill",
+            counts["flash_attention"], kinds)
+    ref = _audio_caches(cache, 1)
+
+    def greedy():
+        out, last = [], lg
+        for _ in range(N):
+            tok = last.argmax(-1)
+            last, _ = serve(params, cache, tok)
+            out.append((tok, last))
+        return out
+    want, dec_s, dc = _run_counted(torch, greedy)
+    _expect("partition_audio", f"unpartitioned {dtype} flash_decode over {N} steps",
+            dc["flash_decode"], 2 * cfg.num_layers * N)
+    launches = {k: counts[k] + dc[k] for k in counts}
+    del cache
+    res = dict(arch="seamless_m4t_large_v2", dtype=dtype, encoder_layers=layers,
+               decoder_layers=layers, batch=B, frames=F, self_cache=C, steps=N, tol=tol,
+               unpartitioned=dict(prefill_s=pre_s, decode_ms_per_step=1e3 * dec_s / N))
+    if bf16:
+        # the yardstick of one more rounding: the unpartitioned prefill on
+        # the plain versions (impl "torch") against the kernels'
+        c = init_cache(cfg, B, C, enc_len=F, device=dev)
+        lg_plain, c = steps.build_prefill_step(cfg, pre, impl="torch")(params, batch, c)
+        res["plain_vs_kernels"] = dict(
+            prefill_logits_rel_err=rel_err(lg_plain[None, :, :V], lg[None, :, :V].float()),
+            first_token=_first_tokens(lg_plain[:, :V], lg[:, :V]))
+        del c, lg_plain
+    for shape in meshes:
+        n = shape[0] * shape[1]
+        mesh = GangMesh([dev] * n, shape, ("data", "model"))
+        tag = f"{shape[0]}x{shape[1]}"
+
+        def shards(mesh):
+            pspecs = shd.param_specs(cfg, params, mesh,
+                                     fsdp=shd.needs_fsdp(cfg, mesh, "prefill"))
+            c = init_cache(cfg, B, C, enc_len=F, device=dev)
+            cspecs = shd.cache_specs(cfg, c, mesh, global_batch=B)
+            return (partition.shard_tree(params, pspecs, mesh),
+                    partition.shard_tree(batch, shd.batch_specs(cfg, pre, mesh), mesh),
+                    partition.shard_tree(c, cspecs, mesh),
+                    shd.per_device_bytes(params, pspecs, mesh)
+                    + shd.per_device_bytes(c, cspecs, mesh), c)
+        p, b, c, rank_bytes, whole_c = shards(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_bytes()
+        (lg_s, c), p_pre_s, pc = _run_counted(torch, lambda: prefill(p, b, c))
+        pre_bytes = dict(mesh.collective_bytes[0])
+        _expect("partition_audio", f"{dtype} {tag} flash_attention per prefill",
+                pc["flash_attention"], kinds * n)
+        got = partition.unshard_tree(lg_s)
+        caches = _audio_caches(partition.unshard_tree(c), 1)
+        tspec = shd.batch_specs(cfg, dec, mesh)["token"]
+        step_bytes = []
+
+        def run(c=c):
+            out, last = [], got
+            for i in range(N):
+                # bf16 teacher-forced by the unpartitioned tokens; f32 greedy
+                tok = want[i][0] if bf16 else last.argmax(-1)
+                mesh.reset_bytes()
+                lg_i, c = serve(p, c, partition.shard_tree(tok, tspec, mesh))
+                step_bytes.append(dict(mesh.collective_bytes[0]))
+                last = partition.unshard_tree(lg_i)
+                out.append((tok, last))
+            return out
+        out, p_dec_s, sc = _run_counted(torch, run)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for k in sc:
+            _expect("partition_audio", f"{dtype} {tag} {k} over {N} steps", sc[k], 0)
+        logits_err = rel_err(got[None, :, :V], lg[None, :, :V].float())
+        cache_errs = {k: rel_err(caches[k].flatten(0, 1), ref[k].flatten(0, 1).float())
+                      for k in ref}
+        del caches
+        errs = _rel_norms(out, want, V)
+        steps_same, rows_same = _same_tokens(out, want)
+        first = _first_tokens(got[:, :V], lg[:, :V])
+        first_same = first["rows_same"] == B
+        fails = []
+        if max([logits_err] + errs + list(cache_errs.values())) > tol:
+            fails.append(f"logits {logits_err:.3e}, caches {cache_errs}, serve steps "
+                         f"{max(errs):.3e} against the limit {tol}")
+        if bf16 and not first["clear_rows_same"]:
+            fails.append(f"the first token differs in a row whose margin is clear: {first}")
+        if not bf16 and steps_same != N:
+            fails.append(f"the same greedy tokens in {steps_same} of {N} steps")
+        if any(sb != step_bytes[0] for sb in step_bytes):
+            fails.append("the serve steps moved different collective bytes")
+        row = dict(mesh=dict(mesh.shape), first_token_same=first_same, first_token=first,
+                   prefill_logits_rel_err=logits_err, cache_rel_err=cache_errs,
+                   serve_rel_err_max=max(errs), steps_tokens_same=steps_same,
+                   rows_tokens_same=rows_same, prefill_s=p_pre_s,
+                   decode_ms_per_step=1e3 * p_dec_s / N, card_peak_gb=peak_gb,
+                   rank_argument_gb=rank_bytes / 1e9,
+                   collective_bytes=dict(prefill=pre_bytes, serve_step=step_bytes[0]))
+        if bf16:
+            t_dry = time.perf_counter()
+            recs = {"prefill": dryrun.collective_bytes(cfg, pre, mesh, max_len=C),
+                    "serve_step": dryrun.collective_bytes(cfg, dec, mesh)}
+            row["dry_run_count_s"] = time.perf_counter() - t_dry
+            row["dry_run_collectives_equal"] = recs == row["collective_bytes"]
+            if not row["dry_run_collectives_equal"]:
+                fails.append(f"collective bytes on the card {row['collective_bytes']} "
+                             f"against the dry run's {recs}")
+            tok = partition.shard_tree(want[0][0], tspec, mesh)
+            back = partition.Sharded([dict(t, len=t["len"] - 2) for t in c.local],
+                                     c.specs, mesh)
+            row["serve_step_profile"] = _profile_steps(torch, lambda: serve(p, back, tok), 2)
+        if bf16 and shape == meshes[0]:
+            fp, fb, fc, _, _ = shards(mesh)
+            with _dropping_encoder_partial(F, cfg.d_model) as seen:
+                fault = partition.unshard_tree(prefill(fp, fb, fc)[0])
+            row["dropped_encoder_partial_rel_err"] = rel_err(fault[None, :, :V],
+                                                             lg[None, :, :V].float())
+            if len(seen) != n or row["dropped_encoder_partial_rel_err"] <= tol:
+                fails.append(f"a prefill without the last model rank's partial of the first "
+                             f"encoder all-reduce reads "
+                             f"{row['dropped_encoder_partial_rel_err']:.3e}, inside the limit")
+            del fp, fb, fc, fault
+            # the same shards fed the unpartitioned tokens from the prompt's
+            # length on, their cross decode without the last rank's slice
+            fc = partition.Sharded([dict(t, len=torch.ones_like(t["len"])) for t in c.local],
+                                   c.specs, mesh)
+            fault_out = []
+            with _dropping_cross_slice(whole_c["cross_k"]) as hits:
+                for i in range(PARTITION_FAULT_STEPS):
+                    lg_f, fc = serve(p, fc, partition.shard_tree(want[i][0], tspec, mesh))
+                    fault_out.append((want[i][0], partition.unshard_tree(lg_f)))
+            row["dropped_cross_slice_rel_err"] = _rel_norms(fault_out, want, V)
+            del fc, fault_out
+            if (len(hits) != PARTITION_FAULT_STEPS * cfg.num_layers
+                    or min(row["dropped_cross_slice_rel_err"]) <= tol):
+                fails.append(f"serve steps whose cross decode drops the last rank's slice "
+                             f"read {row['dropped_cross_slice_rel_err']}, inside the limit")
+        for k in launches:
+            launches[k] += pc[k] + sc[k]
+        res[tag] = row
+        del p, b, c, lg_s, got, out, whole_c
+        torch.cuda.empty_cache()
+        if fails:
+            raise AssertionError(f"partition_audio: {dtype} on {tag}: " + "; ".join(fails)
+                                 + f" (readings: {json.dumps(row, default=str)[:3000]})")
+    del params, want, ref, lg
+    torch.cuda.empty_cache()
+    res["case_s"] = time.perf_counter() - t_case
+    return res, launches
+
+
+def phase_partition_audio(torch, dev, smi):
+    """The audio family's partitioned steps (module doc, 24)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    runs, launches = {}, dict.fromkeys(_counters(), 0)
+    full = get_config("seamless_m4t_large_v2").num_layers
+    for name, layers, dtype in (("seamless_m4t_large_v2_bf16", full, "bfloat16"),
+                                ("seamless_m4t_large_v2_f32", PA_F32_LAYERS, "float32")):
+        runs[name], counts = _partition_audio_case(torch, dev, layers, dtype, PM_MESHES)
+        for k, v in counts.items():
+            launches[k] += v
+    runs["train"] = _pt_case(torch, dev, "seamless_m4t_large_v2", PA_TRAIN_LAYERS,
+                             PA_TRAIN_LAYERS, PT_MESHES, profile=False)
+    _say("partition_audio", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
+         f32_tol=PARTITION_F32_TOL, loss_tol=PT_LOSS_TOL,
+         cut=f"f32 serving run at {PA_F32_LAYERS} + {PA_F32_LAYERS} layers; the train "
+         f"step at {PA_TRAIN_LAYERS} + {PA_TRAIN_LAYERS} of 24 + 24 (f32 the same)",
          runs=runs, launches=launches, phase_s=time.perf_counter() - t0)
     return launches
 
@@ -3156,6 +3538,9 @@ def _phases(torch, smi, matrix_job) -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     for name, n in phase_partition_ssm(torch, dev, smi).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in phase_partition_audio(torch, dev, smi).items():
         launches[name] += n
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

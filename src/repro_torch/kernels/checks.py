@@ -43,6 +43,68 @@ CROSS_ATTENTION_EDGES = [
 ]
 
 
+#: B1 and B2 at the shapes whose outputs the reference's own Pallas kernels
+#: give (interpret mode, on a CPU: tests/test_torch_kernels.py run as a
+#: script writes them to tests/data/attention_reference.npz, f32 values,
+#: "<name>.<dtype>" for float32 and bfloat16): name -> (kernel, b, h, kvh,
+#: sq, sk, d, causal, window, q_offset, lengths), lengths B1's kv_len or
+#: B2's cache_len per row (None: every key).  Causal with GQA; unmasked at
+#: D 64 (the encoder); one query row across the frames with a ragged
+#: kv_len (the cross attention); a window at a q_offset; B2 ragged, and
+#: over a full cross cache.
+REFERENCE_CASES = {
+    "b1_causal_gqa": ("attention", 1, 4, 2, 160, 160, 64, True, 0, 0, None),
+    "b1_encoder": ("attention", 1, 2, 2, 192, 192, 64, False, 0, 0, None),
+    "b1_cross_row": ("attention", 4, 4, 4, 1, 300, 64, False, 0, 0, (300, 257, 129, 1)),
+    "b1_window_offset": ("attention", 1, 4, 1, 64, 200, 64, True, 40, 136, None),
+    "b2_ragged": ("decode", 4, 8, 2, 1, 300, 128, False, 0, 0, (300, 211, 64, 1)),
+    "b2_cross_full": ("decode", 4, 4, 4, 1, 256, 64, False, 0, 0, (256, 256, 256, 256)),
+}
+
+
+def reference_inputs(name: str, dtype: str):
+    """(q, k, v, lengths or None) of REFERENCE_CASES[name], numpy f32 from a
+    seed (bfloat16: rounded to bf16 values, exact in f32); q (b, h, sq, d)
+    for B1, (b, h, d) for B2."""
+    import numpy as np
+    kernel, b, h, kvh, sq, sk, d, *_, lengths = REFERENCE_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q = rng.standard_normal((b, h, sq, d) if kernel == "attention" else (b, h, d))
+    k, v = (rng.standard_normal((b, kvh, sk, d)) for _ in range(2))
+    out = [torch.from_numpy(t.astype(np.float32)) for t in (q, k, v)]
+    if dtype == "bfloat16":
+        out = [t.bfloat16().float() for t in out]
+    return (*(t.numpy() for t in out),
+            None if lengths is None else np.array(lengths, dtype=np.int32))
+
+
+def reference_call(name: str, q, k, v, lengths, fn_attention, fn_decode):
+    """REFERENCE_CASES[name] run by `fn_attention(q, k, v, causal=,
+    sliding_window=, q_offset=, kv_len=)` or `fn_decode(q, k, v, cache_len,
+    sliding_window=)`."""
+    kernel, *_, causal, window, q_offset, _ = REFERENCE_CASES[name]
+    if kernel == "attention":
+        return fn_attention(q, k, v, causal=causal, sliding_window=window,
+                            q_offset=q_offset, kv_len=lengths)
+    return fn_decode(q, k, v, lengths, sliding_window=window)
+
+
+def reference_agrees(got: torch.Tensor, want: torch.Tensor, dtype: str) -> float:
+    """A B1 or B2 output against the reference's: f32 F32_TOL elementwise
+    (the reading: max |err|), bf16 B1_REL_TOL in relative norm per (batch,
+    head) (the reading: that norm).  Raises AssertionError."""
+    if dtype == "float32":
+        err = (got.float() - want).abs().max().item()
+        if not torch.allclose(got.float(), want, atol=F32_TOL, rtol=F32_TOL):
+            raise AssertionError(f"max |err| {err} against the reference (tol {F32_TOL})")
+        return err
+    rel = rel_err(got, want)
+    if not rel < B1_REL_TOL:
+        raise AssertionError(f"||got - want|| / ||want|| {rel} against the reference "
+                             f"(limit {B1_REL_TOL})")
+    return rel
+
+
 def attention_inputs(b: int, h: int, kvh: int, d: int, sq: int, sk: int, *,
                      generator: torch.Generator, device,
                      dtype: torch.dtype = torch.bfloat16):

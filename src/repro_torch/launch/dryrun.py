@@ -46,9 +46,8 @@ factored moments' temporaries are what the full step holds.
 Collective bytes, which the reference parses from partitioned HLO
 (``collective_bytes_from_hlo``: each collective's result bytes in one
 device's program), come from the partitioner's own count: the train,
-prefill and serve steps of the dense, vlm, moe, ssm and hybrid families
-(`models/tp.FAMILIES`) run partitioned (`launch/partition.py`) on meta
-ranks of the combo's mesh,
+prefill and serve steps of every family (`models/tp.FAMILIES`) run
+partitioned (`launch/partition.py`) on meta ranks of the combo's mesh,
 rank 0's body alone, and the mesh counts rank 0's collective bytes by
 kind — the train step's backward too, each collective's dual
 (`sp.common.collective`), with FSDP over the batch axes ("pod", "data" on
@@ -56,10 +55,10 @@ the multi-pod mesh); moe's experts go over "model" and its meta rank
 dispatches through the reference's one-hot restricted to its experts
 (`moe.expert_partial`: a meta rank has no values to route by); the
 Mamba2 scan's row pieces enter every rank's state passing, so rank 0's
-body moves what every rank's does; a step deeper than 3 units runs at 2
-and 3 and is extrapolated (every layer, every hybrid segment, moves the
-same bytes).  The audio family has no partitioned step yet: its records
-carry ``"collectives": null`` and the reason (`collectives_reason`).
+body moves what every rank's does; audio's cross K/V go into the cross
+cache by an all-to-all as the self K/V do; a step deeper than 3 units
+runs at 2 and 3 and is extrapolated (every layer, every hybrid segment,
+every encoder and decoder layer pair moves the same bytes).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
         --shape train_4k [--multi-pod] [--out build/dryrun_torch]
@@ -91,19 +90,10 @@ from repro_torch.launch import shardings as shd
 from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as mdl
-from repro_torch.models import tp
 from repro_torch.sp.common import GangMesh
 from repro_torch.training import optimizer
 
 OUT = Path("build/dryrun_torch")
-
-
-def collectives_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
-    """Why a combo's record carries no collective bytes (None: it does)."""
-    if cfg.family not in tp.FAMILIES:
-        return (f"the partitioned {cfg.family} step is not ported yet: "
-                f"partitioned steps cover the {tp.families()} families")
-    return None
 
 
 def _tensors(tree):
@@ -306,7 +296,8 @@ def _count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh: GangMesh,
                                  partition.shard_tree(batch, bspecs, mesh))
         return dict(mesh.collective_bytes[0])
     cache = (st.cache_structs(cfg, shape) if max_len is None
-             else mdl.init_cache(cfg, shape.global_batch, max_len, device="meta"))
+             else mdl.init_cache(cfg, shape.global_batch, max_len, device="meta",
+                                 enc_len=st.cache_lengths(cfg, shape)[1]))
     c = partition.shard_tree(cache, shd.cache_specs(cfg, cache, mesh,
                                                     global_batch=shape.global_batch), mesh)
     # the account's replay: a plain attention column run once per shape
@@ -347,12 +338,14 @@ def run_combo(arch: str, shape: Union[str, ShapeConfig], *, multi_pod: bool = Fa
     """The record of one (arch, shape, mesh): the reference's keys (arch,
     shape, mesh, kind, ok / skipped + reason, fsdp, memory, cost,
     collectives, n_devices) with the port's account.  `shape` is a name of
-    INPUT_SHAPES or a ShapeConfig; `layers` cuts the depth; `mesh`
-    (default: the production mesh) may be a host mesh.  Written to
-    out_dir/<tag>.json when out_dir is given."""
+    INPUT_SHAPES or a ShapeConfig; `layers` cuts the depth (audio: the
+    decoder's, the encoder's in the model's ratio); `mesh` (default: the
+    production mesh) may be a host mesh.  Written to out_dir/<tag>.json
+    when out_dir is given."""
     cfg = get_config(arch)
     if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, num_layers=layers, encoder_layers=(
+            layers * cfg.encoder_layers // cfg.num_layers))
     shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
     mesh = mesh if mesh is not None else make_production_mesh(multi_pod=multi_pod)
     rec: Dict[str, Any] = {"arch": arch, "shape": shape.name, "mesh": mesh_tag(mesh),
@@ -409,14 +402,9 @@ def run_combo(arch: str, shape: Union[str, ShapeConfig], *, multi_pod: bool = Fa
     rec["hbm_per_device"] = shd.HBM_PER_DEVICE
     rec["cost"] = {"flops": float(acct["flops"]), "bytes accessed": float(acct["bytes"]),
                    "scope": "the whole step over every device; bytes unfused"}
-    reason = collectives_reason(cfg, shape)
-    if reason is None:
-        rec["collectives"] = collective_bytes(cfg, shape, mesh)
-        rec["collectives_scope"] = ("one device's collective result bytes, counted by "
-                                    "the partitioned step on meta ranks")
-    else:
-        rec["collectives"] = None
-        rec["collectives_reason"] = reason
+    rec["collectives"] = collective_bytes(cfg, shape, mesh)
+    rec["collectives_scope"] = ("one device's collective result bytes, counted by "
+                                "the partitioned step on meta ranks")
     rec["account"] = {"units": acct["units"], "units_run": acct["units_run"],
                       "seconds": time.perf_counter() - t0}
     rec["ok"] = True

@@ -8,10 +8,11 @@ full-width model's shards on ranks that share one card cost no memory.
 `unshard_tree` joins the pieces back.  `run_lockstep` runs one body per
 rank (`sp.common.lockstep`); a body reaches the other ranks only through
 its `Rank`'s collectives, which the mesh counts by kind.  `prefill` and
-`serve` are the partitioned prefill and serve steps of the families of
-`models/tp.FAMILIES` (moe with its experts over "model"; ssm and hybrid
+`serve` are the partitioned prefill and serve steps of every family
+(`models/tp.FAMILIES`: moe with its experts over "model"; ssm and hybrid
 with the Mamba2 scan over "model" by heads or rows, the hybrid's shared
-block tensor-parallel), `loss_and_grads` and `train` their FSDP train step;
+block tensor-parallel; audio's encoder, decoder and cross cache),
+`loss_and_grads` and `train` their FSDP train step;
 `steps.build_prefill_step`, `build_serve_step` and `build_train_step` run
 them when given `Sharded` arguments.  Under
 autograd the ranks' pieces form one graph (each collective one node over
@@ -170,10 +171,13 @@ class _Remat(torch.autograd.Function):
     (the ranks in lockstep once more) and backpropagates through that run
     from the thread that runs the backward, the parameters' gradients
     accumulating into their `.grad`: ``jax.checkpoint`` around one layer
-    of every rank."""
+    of every rank.  `anchor`, an empty tensor that requires grad, makes
+    the results require grad where no input does (the encoder's first
+    layer, on the frames): the parameters the stage closes over are not
+    inputs here."""
 
     @staticmethod
-    def forward(ctx, stage, *xs):
+    def forward(ctx, stage, anchor, *xs):
         ctx.stage = stage
         ctx.save_for_backward(*xs)
         return tuple(stage(list(xs)))
@@ -185,7 +189,13 @@ class _Remat(torch.autograd.Function):
             ys = ctx.stage(xs)
         pairs = [(y, g) for y, g in zip(ys, grads) if y.requires_grad]
         torch.autograd.backward([y for y, _ in pairs], [g for _, g in pairs])
-        return (None, *(x.grad if x.requires_grad else None for x in xs))
+        return (None, None, *(x.grad if x.requires_grad else None for x in xs))
+
+
+def _remat(stage, *xs):
+    """`_Remat` of `stage` over `xs`."""
+    anchor = torch.empty(0, requires_grad=torch.is_grad_enabled())
+    return _Remat.apply(stage, anchor, *xs)
 
 
 class Rank:
@@ -232,29 +242,34 @@ class Rank:
         """Wait until every rank has come here."""
         self.meet(self.mesh.axis_names, "barrier", lambda m: [None] * m.n_ranks)
 
-    def remat(self, tag: str, fn: Callable, x: torch.Tensor):
-        """``fn(rank, x)`` (a tensor, or a tuple of tensors: a moe layer's
+    def remat(self, tag: str, fn: Callable, *xs: torch.Tensor):
+        """``fn(rank, *xs)`` (a tensor, or a tuple of tensors: a moe layer's
         residual and its load-balance loss), every rank's call run in
         lockstep as one activation checkpoint (`_Remat`): the ranks meet
         here, the call of every rank runs without autograd, and the
-        backward runs them all again.  A per-rank checkpoint could not: its
+        backward runs them all again and gives each of `xs` its gradient
+        (an audio decoder layer's residual and the encoder's output: a
+        tensor `fn` closed over would take its gradient from inside the
+        backward, once per layer).  A per-rank checkpoint could not: its
         saved-tensor hooks are the rank thread's, and its recompute would
         reach the collectives one rank at a time."""
-        single = []
+        single, n = [], len(xs)
 
-        def outs(rk, y):
-            out = fn(rk, y)
+        def outs(rk, *ys):
+            out = fn(rk, *ys)
             single.append(torch.is_tensor(out))
             return (out,) if torch.is_tensor(out) else tuple(out)
         if self._meet is None:
-            got = _Remat.apply(lambda xs: list(outs(self, xs[0])), x)
+            got = _remat(lambda ys: list(outs(self, *ys)), *xs)
         else:
-            def stage(mesh, fns, xs):
-                flat = _Remat.apply(lambda ys: [t for o in run_lockstep(
-                    mesh, lambda rk: fns[rk.rank](rk, ys[rk.rank])) for t in o], *xs)
-                k = len(flat) // len(xs)
-                return [flat[r * k:(r + 1) * k] for r in range(len(xs))]
-            got = self.meet((), tag, stage, outs, x)
+            def stage(mesh, fns, *inputs):
+                ranks = len(fns)
+                flat = _remat(lambda ys: [t for o in run_lockstep(
+                    mesh, lambda rk: fns[rk.rank](rk, *ys[rk.rank * n:(rk.rank + 1) * n]))
+                    for t in o], *(a[r] for r in range(ranks) for a in inputs))
+                k = len(flat) // ranks
+                return [flat[r * k:(r + 1) * k] for r in range(ranks)]
+            got = self.meet((), tag, stage, outs, *xs)
         return got[0] if single[0] else tuple(got)
 
     def all_gather(self, x, axes: Axes, *, axis: int):
@@ -311,16 +326,17 @@ def _mesh_of(*trees: Sharded) -> GangMesh:
     return mesh
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in tp.FAMILIES:
-        raise NotImplementedError(
-            f"partitioned steps cover the {tp.families()} families, not {cfg.family}")
-
-
 def _kv_spec(cache: Sharded):
     """The spec of the attention cache the plan lays out: "k", the hybrid's
     shared block's "sh_k", none for ssm."""
     return cache.specs.get("k", cache.specs.get("sh_k"))
+
+
+def _frames(cfg: ModelConfig, batch: Sharded) -> int:
+    """audio: the encoder's frames per sequence (0 for the other families)."""
+    if cfg.family != "audio":
+        return 0
+    return _global_shape(batch.local[0]["frames"], batch.specs["frames"], batch.mesh)[1]
 
 
 def prefill(cfg: ModelConfig, params: Sharded, batch: Sharded, cache: Sharded, *,
@@ -328,14 +344,14 @@ def prefill(cfg: ModelConfig, params: Sharded, batch: Sharded, cache: Sharded, *
     """`model.prefill` partitioned: (last-token logits (B, V) sharded over
     the batch and vocab axes, the cache) as `Sharded`.  The caches' pieces
     are written in place."""
-    _check_family(cfg)
     mesh = _mesh_of(params, batch, cache)
     tok = batch.local[0]["tokens"]
     B, S = _global_shape(tok, batch.specs["tokens"], mesh)
     if cfg.family == "vlm":
         S += batch.local[0]["embeds"].shape[1]
     pl = tp.plan(cfg, mesh, batch=B, seq=S, long_context=long_context,
-                 tok_spec=batch.specs["tokens"], cache_spec=_kv_spec(cache))
+                 tok_spec=batch.specs["tokens"], cache_spec=_kv_spec(cache),
+                 frames=_frames(cfg, batch), cross_spec=cache.specs.get("cross_k"))
     with torch.no_grad():
         outs = run_lockstep(mesh, lambda rk: tp.prefill_rank(
             rk, cfg, pl, params.local[rk.rank], params.specs, batch.local[rk.rank],
@@ -348,11 +364,11 @@ def serve(cfg: ModelConfig, params: Sharded, cache: Sharded, token: Sharded, *,
           impl: str = "auto", ring_buffer: bool = False, long_context: bool = False):
     """`model.decode_step` partitioned: (logits (B, V) sharded over the
     batch and vocab axes, the cache) as `Sharded`."""
-    _check_family(cfg)
     mesh = _mesh_of(params, cache, token)
     (B,) = _global_shape(token.local[0], token.specs, mesh)
     pl = tp.plan(cfg, mesh, batch=B, seq=1, long_context=long_context,
-                 tok_spec=token.specs, cache_spec=_kv_spec(cache))
+                 tok_spec=token.specs, cache_spec=_kv_spec(cache),
+                 cross_spec=cache.specs.get("cross_k"))
     with torch.no_grad():
         outs = run_lockstep(mesh, lambda rk: tp.serve_rank(
             rk, cfg, pl, params.local[rk.rank], params.specs, cache.local[rk.rank],
@@ -374,7 +390,7 @@ def _train_plan(cfg: ModelConfig, params: Sharded, batch: Sharded) -> tp.Plan:
     if cfg.family == "vlm":
         S += batch.local[0]["embeds"].shape[1]
     return tp.plan(cfg, params.mesh, batch=B, seq=S, long_context=False,
-                   tok_spec=batch.specs["tokens"])
+                   tok_spec=batch.specs["tokens"], frames=_frames(cfg, batch))
 
 
 def loss_and_grads(cfg: ModelConfig, params: Sharded, batch: Sharded, *,
@@ -389,7 +405,6 @@ def loss_and_grads(cfg: ModelConfig, params: Sharded, batch: Sharded, *,
     replicated leaf's gradient is partial on each rank (its heads, its
     batch rows); over the axes a leaf is cut over, the backward of its
     all-gather has reduce-scattered it already."""
-    _check_family(cfg)
     mesh = _mesh_of(params, batch)
     pl = _train_plan(cfg, params, batch)
     leaves = [walk(lambda path, x, n: x.detach().requires_grad_(True), t)

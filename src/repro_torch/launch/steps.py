@@ -14,10 +14,10 @@ sends the serve step's decode attention over a sharded cache sequence to
 the sequence-sharded decode (`layers._cached_decode_attention`).
 
 Given `launch.partition.Sharded` arguments (`partition.shard_tree` over
-the spec trees of `launch/shardings.py`), the three steps of the dense,
-vlm, moe, ssm and hybrid families (`models/tp.FAMILIES`: moe with its
-experts over "model", the Mamba2 scan over "model" by heads or rows) run
-partitioned over the arguments' mesh, as XLA
+the spec trees of `launch/shardings.py`), the three steps of every family
+(`models/tp.FAMILIES`: moe with its experts over "model", the Mamba2 scan
+over "model" by heads or rows, audio's encoder, decoder and cross cache)
+run partitioned over the arguments' mesh, as XLA
 partitions the reference's under its rules: each rank holds its shards and
 runs `models/tp.py`'s body in lockstep with the others; the train step
 under the fsdp rules (`partition.train`).  Whole tensors take the path

@@ -7,9 +7,10 @@ Each step is `steps.build_train_step` over a host mesh
 (`launch/mesh.make_host_mesh`: every visible card, or the CPU), as the
 reference's launcher jits it over its mesh: the loss with remat over the
 plain PyTorch attention and SSD, its gradients, one AdamW update.  On a
-mesh of more than one rank the step is the partitioned FSDP step (dense,
-vlm, moe, ssm and hybrid: `models/tp.FAMILIES`): the params, the optimizer state and each batch are cut by
-``shardings.param_specs(fsdp=True)``, `opt_specs` and `batch_specs`.
+mesh of more than one rank the step is the partitioned FSDP step (every
+family: `models/tp.FAMILIES`): the params, the optimizer state and each
+batch are cut by ``shardings.param_specs(fsdp=True)``, `opt_specs` and
+`batch_specs`.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mistral_7b --full
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b --device cpu --steps 5

@@ -1,5 +1,5 @@
-"""Per-rank bodies of the dense, vlm, moe, ssm and hybrid families under
-the sharding rules: what `models/layers.py`, `models/moe.py`,
+"""Per-rank bodies of every family (dense, vlm, moe, ssm, hybrid, audio)
+under the sharding rules: what `models/layers.py`, `models/moe.py`,
 `models/mamba2.py` and `models/model.py` become when XLA's SPMD
 partitioner splits the reference's steps under `standard_rules`, written
 out for one rank of a `GangMesh`.  The caller (`launch/partition.py`) runs one body per rank in
@@ -61,12 +61,26 @@ The layouts come from the reference's call sites through `resolve_spec` /
   "model" and cut over the batch axes;
 * the hybrid's shared attention and MLP block as a dense layer (no
   window), its K/V into ``sh_k`` / ``sh_v`` in the cache's layout;
+* the audio encoder-decoder: the encoder's residual whole over "model"
+  (the reference constrains none of it; its compiled prefill all-reduces
+  wo's and w_down's sums), its attention not causal with RoPE on the
+  frame positions; the decoder's embedding over "seq", each decoder
+  layer's residual gathered and whole inside (its row-parallel sums
+  all-reduced), cut back to the rank's rows at the layer's end; the cross
+  attention's K and V projected by each rank from the encoder's output
+  for its K/V heads' columns (no RoPE, not causal, every frame) and moved
+  into the cross cache by the prefill's all-to-all; the serve step's
+  cross decode over the rank's slice of the cross cache
+  (`distributed_decode_local`, where the reference leaves the partitioning
+  of its plain decode to XLA);
 * the train step's loss (`loss_rank`, under the fsdp rules) on the logits
   as the reference constrains them, the sequence gathered and the
   vocabulary over "model": each slice's max and sum of exponentials
   merged across the vocab ranks, the labels' logits taken where their
   slice lies; moe adds 0.01 x the load-balance loss, its per-expert means
-  taken over every group; remat per layer, per hybrid segment.
+  taken over every group; remat per layer, per hybrid segment, per
+  encoder and decoder layer (`Rank.remat` of the residual and the
+  encoder's output, whose gradient the decoder layers' sum).
 
 A dim that its axes do not divide stays whole, as the rules leave it.
 """
@@ -74,7 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,12 +105,7 @@ from repro_torch.sp.common import as_axes
 from repro_torch.sp.decode import distributed_decode_local
 
 Axes = Tuple[str, ...]
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-
-
-def families() -> str:
-    """FAMILIES in words: "dense, vlm and moe"."""
-    return ", ".join(FAMILIES[:-1]) + " and " + FAMILIES[-1]
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 @dataclass(frozen=True)
@@ -113,14 +122,43 @@ class Plan:
     moe_group: int = 0     # moe: tokens per routing group
     ssd_heads: Axes = ()   # ssm, hybrid: the scan's heads, or
     ssd_rows: Axes = ()    # its rows (the fallback), or neither: the scan whole
+    enc: Optional["Plan"] = None   # audio: the encoder's layouts (residual whole)
+    cross_seq: Axes = ()   # audio: the cross cache's sequence
 
 
 def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
-         tok_spec=None, cache_spec=None) -> Plan:
+         tok_spec=None, cache_spec=None, frames: int = 0, cross_spec=None) -> Plan:
     """The layouts the reference's call sites give a step of `batch`
     sequences of `seq` positions (1: the serve step) under
     ``standard_rules(mesh, long_context=...)``; `tok_spec` and
-    `cache_spec` are the tokens' and the "k" cache's specs."""
+    `cache_spec` are the tokens' and the "k" cache's specs.  audio: `seq`
+    is the decoder's positions (1: the prefill's BOS row, laid out as a
+    prefill where `frames` is given), `frames` the encoder's (0: the serve
+    step), whose layouts go under `enc` with its residual whole;
+    `cross_spec` is the "cross_k" cache's spec.  One sequence cut over the
+    long-context rules' axes raises: its decoder's BOS token divides over
+    no mesh of more than one rank."""
+    if cfg.family != "audio":
+        return _plan(cfg, mesh, batch, seq, long_context, seq == 1, tok_spec, cache_spec)
+    p = _plan(cfg, mesh, batch, seq, long_context, not frames, tok_spec, cache_spec)
+    if frames and p.tok_seq and mesh.axis_size(p.tok_seq) > 1:
+        raise ValueError(
+            f"partitioned audio prefill: the batch specs cut the decoder's {seq} BOS "
+            f"token(s) of one sequence over {p.tok_seq} ({mesh.axis_size(p.tok_seq)} "
+            "ranks) under the long-context rules, which no mesh of more than one rank "
+            "divides (the reference's jit refuses that input sharding; long_500k is "
+            "skipped for encoder-decoders)")
+    enc = None
+    if frames:
+        enc = dataclasses.replace(_plan(cfg, mesh, batch, frames, long_context, False),
+                                  seq=(), tok_seq=p.tok_seq)
+    return dataclasses.replace(
+        p, enc=enc, cross_seq=as_axes(cross_spec[3]) if cross_spec is not None else ())
+
+
+def _plan(cfg: ModelConfig, mesh, batch: int, seq: int, long_context: bool, serve: bool,
+          tok_spec=None, cache_spec=None) -> Plan:
+    """`plan` of one stack of layers; `serve`: one token per sequence."""
     B, S, d = batch, seq, cfg.d_model
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     with use_rules(standard_rules(mesh, long_context=long_context)):
@@ -142,9 +180,9 @@ def plan(cfg: ModelConfig, mesh, *, batch: int, seq: int, long_context: bool,
     p = Plan(batch=as_axes(xs[0]), seq=as_axes(xs[1]) if S > 1 else (),
              tok_seq=as_axes(tok_spec[1]) if tok_spec is not None and len(tok_spec) > 1
              else (),
-             q_heads=as_axes(qs[1]) if qs is not None and S > 1 else (),
-             q_rows=as_axes(qs[2]) if qs is not None and S > 1 else (),
-             kv_heads=as_axes(ks[1]) if ks is not None and S > 1 else (),
+             q_heads=as_axes(qs[1]) if qs is not None and not serve else (),
+             q_rows=as_axes(qs[2]) if qs is not None and not serve else (),
+             kv_heads=as_axes(ks[1]) if ks is not None and not serve else (),
              cache_seq=as_axes(cache_spec[3]) if cache_spec is not None else ())
     if cfg.family == "moe":
         p = dataclasses.replace(p, moe_batch=as_axes(gs[0]), moe_group=Tg)
@@ -326,12 +364,16 @@ def _moe(rk, cfg: ModelConfig, pl: Plan, p, ps, h, seq: Axes, cf=None, *,
     return y, cfg.num_experts * (me * ce).sum()
 
 
-def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
+def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl, causal: bool = True,
+               seq=None, enc=None):
     """Prefill attention of the rank's normalised rows `h` (b, S, d), the
-    whole sequence: (its output in the residual's layout, (K, V) as
-    (b, KV / |kv_heads|, S, hd))."""
+    whole sequence: (its output in the residual's layout over `seq`
+    (default the plan's), (K, V) as (b, KV / |kv_heads|, Sk, hd)).  `enc`:
+    the encoder's output (b, F, d), whole, from which the cross attention
+    projects K and V (no RoPE on q or K, not causal, every frame)."""
     b, S, _ = h.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    seq = pl.seq if seq is None else seq
     q, qc = _col(rk, h, p, ps, "wq", "bq")
     h0, nh, q0 = 0, H, 0
     if pl.q_heads:
@@ -344,18 +386,22 @@ def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
     else:
         q = rk.all_gather(q, qc, axis=-1)
     sq = q.shape[1]
-    q = L.rope(q.reshape(b, sq, nh, hd), positions[q0:q0 + sq], cfg.rope_theta)
-    k, kc = _col(rk, h, p, ps, "wk", "bk")
-    v, vc = _col(rk, h, p, ps, "wv", "bv")
+    q = q.reshape(b, sq, nh, hd)
+    src = h if enc is None else enc
+    k, kc = _col(rk, src, p, ps, "wk", "bk")
+    v, vc = _col(rk, src, p, ps, "wv", "bv")
     k, v = _to_cols(rk, k, kc, pl.kv_heads), _to_cols(rk, v, vc, pl.kv_heads)
-    nkv = KV // rk.size(pl.kv_heads)
-    k = L.rope(k.reshape(b, S, nkv, hd), positions, cfg.rope_theta)
-    kh, vh = k.transpose(1, 2), v.reshape(b, S, nkv, hd).transpose(1, 2)
+    nkv, Sk = KV // rk.size(pl.kv_heads), src.shape[1]
+    k = k.reshape(b, Sk, nkv, hd)
+    if enc is None:
+        q = L.rope(q, positions[q0:q0 + sq], cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+    kh, vh = k.transpose(1, 2), v.reshape(b, Sk, nkv, hd).transpose(1, 2)
     ka, va = _kv_for(kh, vh, h0, nh, H // KV, rk.index(pl.kv_heads) * nkv)
-    # the reference's moe layer and hybrid shared block give their
-    # attention no window
+    # the reference's moe layer, hybrid shared block and encoder-decoder
+    # give their attention no window
     window = cfg.sliding_window if cfg.family in ("dense", "vlm") else 0
-    o = ops.attention(q.transpose(1, 2), ka, va, causal=True,
+    o = ops.attention(q.transpose(1, 2), ka, va, causal=causal and enc is None,
                       sliding_window=window, q_offset=q0, impl=impl)
     o = o.transpose(1, 2).reshape(b, sq, nh * hd)
     if pl.q_rows:
@@ -364,9 +410,9 @@ def _attention(rk, cfg, pl: Plan, p, ps, h, positions, *, impl):
             # back to column pieces over the rows of the leading axes
             o = rk.all_to_all(o, rows, split_axis=-1, concat_axis=1)
             out = L.linear(o, _weight(rk, p["wo"], ps["wo"]))
-            return _reduce_to(rk, out, rows, pl.seq, done=pl.q_rows[:-len(rows)]), (kh, vh)
+            return _reduce_to(rk, out, rows, seq, done=pl.q_rows[:-len(rows)]), (kh, vh)
         o = rk.all_gather(o, pl.q_rows, axis=1)
-    return _row(rk, o, pl.q_heads, p, ps, "wo", pl.seq), (kh, vh)
+    return _row(rk, o, pl.q_heads, p, ps, "wo", seq), (kh, vh)
 
 
 def _mamba(rk, cfg: ModelConfig, pl: Plan, p, ps, x, *, impl: str, state: bool = False):
@@ -414,18 +460,26 @@ def _mamba(rk, cfg: ModelConfig, pl: Plan, p, ps, x, *, impl: str, state: bool =
     return x + rk.local(out, 1, pl.seq), ((conv, last) if state else None)
 
 
-def _write_prefix(rk, pl: Plan, dst, src) -> None:
-    """dst, the rank's (b, KV, S_max / |cache_seq|, hd) slice of one layer's
-    cache, <- its positions of the prefill's K or V, src (b, KV /
-    |kv_heads|, S, hd): the slots `model._prefix_slots` gives the whole
-    cache (padded to S_max), cut to the rank's slice by an all-to-all over
-    the head axes."""
+def _write_prefix(rk, pl: Plan, dst, src, ca=None) -> None:
+    """dst, the rank's (b, KV, S_max / |ca|, hd) slice of one layer's cache
+    (`ca`: its sequence's axes, default the plan's cache_seq), <- its
+    positions of the prefill's K or V, src (b, KV / |kv_heads|, S, hd): the
+    slots `model._prefix_slots` gives the whole cache (padded to S_max),
+    cut to the rank's slice by an all-to-all over the head axes; a prefix
+    within the first slice gathered over the head axes instead."""
+    kh, ca = pl.kv_heads, pl.cache_seq if ca is None else ca
     s_loc = dst.shape[2]
-    s_max = s_loc * rk.size(pl.cache_seq)
+    s_max = s_loc * rk.size(ca)
     slots = mdl._prefix_slots(src, s_max)
     n_slots = slots.shape[2]
+    if n_slots <= s_loc:
+        # the prefix lies in the first slice (the audio decoder's BOS row):
+        # its rows gathered over the head axes, written where that slice is
+        piece = rk.all_gather(slots, kh, axis=1)
+        if rk.index(ca) == 0:
+            dst[:, :, :n_slots] = piece
+        return
     full = F.pad(slots, (0, 0, 0, s_max - n_slots))
-    kh, ca = pl.kv_heads, pl.cache_seq
     if kh and ca[-len(kh):] == kh:
         piece = rk.all_to_all(rk.local(full, 2, ca[:-len(kh)]), kh,
                               split_axis=2, concat_axis=1)
@@ -478,16 +532,73 @@ def _layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, positions, *, impl: str,
     return x + _mlp(rk, p["mlp"], ps["mlp"], h, pl.seq), kv, None
 
 
+def _enc_layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, positions, *, impl: str):
+    """One encoder layer (`model._encoder_layer`) on the rank's batch rows x
+    (b, F, d), whole over "model" as the reference leaves the encoder's
+    residual (`pl`: the encoder's plan): attention not causal, RoPE on the
+    frame positions, wo's and w_down's partial sums all-reduced."""
+    eps = cfg.norm_eps
+    h, _ = _attention(rk, cfg, pl, p["attn"], ps["attn"], L.rms_norm(x, p["ln1"], eps),
+                      positions, impl=impl, causal=False)
+    x = x + h
+    return x + _mlp(rk, p["mlp"], ps["mlp"], L.rms_norm(x, p["ln2"], eps), ())
+
+
+def _encode(rk, cfg: ModelConfig, pl: Plan, p, ps, frames, *, impl: str,
+            remat: bool = False):
+    """The encoder over the rank's batch rows of `frames` (gathered over
+    their sequence) and `enc_norm`: the encoder's output (b, F, d), whole;
+    with `remat` each layer under `rk.remat` (the reference's
+    ``jax.checkpoint`` of its scanned body)."""
+    x = rk.all_gather(frames, pl.enc.tok_seq, axis=1).to(getattr(torch, cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for li, (pl_, ps_) in enumerate(zip(p["encoder"], ps["encoder"])):
+        def layer(rk, x, pl_=pl_, ps_=ps_):
+            return _enc_layer(rk, cfg, pl.enc, pl_, ps_, x, positions, impl=impl)
+        x = rk.remat(f"encoder layer {li}", layer, x) if remat else layer(rk, x)
+    return L.rms_norm(x, p["enc_norm"], cfg.norm_eps)
+
+
+def _dec_layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, enc, positions, *, impl: str):
+    """One decoder layer (`model._decoder_layer`) on the rank's residual
+    rows x, the encoder's output `enc` (b, F, d): (x, its self (K, V) heads,
+    its cross (K, V) heads).  The residual is gathered over its sequence
+    and whole over "model" inside the layer (the reference constrains
+    neither its attention's input nor its MLP's), the row-parallel sums
+    all-reduced, and cut back to the rank's rows at the end."""
+    eps = cfg.norm_eps
+    x = rk.all_gather(x, pl.seq, axis=1)
+    h, kv = _attention(rk, cfg, pl, p["attn"], ps["attn"], L.rms_norm(x, p["ln1"], eps),
+                       positions, impl=impl, seq=())
+    x = x + h
+    h, cross = _attention(rk, cfg, pl, p["xattn"], ps["xattn"],
+                          L.rms_norm(x, p["ln2"], eps), positions, impl=impl, seq=(),
+                          enc=enc)
+    x = x + h
+    x = x + _mlp(rk, p["mlp"], ps["mlp"], L.rms_norm(x, p["ln3"], eps), ())
+    return rk.local(x, 1, pl.seq), kv, cross
+
+
 def prefill_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any],
                  cache: Dict[str, Any], *, impl: str = "auto"):
     """One rank's `model.prefill`: (its (b, V / |vocab|) last-token
-    logits, its cache with the K/V slices written in place and "len" set)."""
+    logits, its cache with the K/V slices written in place and "len" set;
+    audio: the encoder's output projected into the cross cache's slices
+    and "cross_len" set)."""
+    audio = cfg.family == "audio"
+    enc = _encode(rk, cfg, pl, p, ps, batch["frames"], impl=impl) if audio else None
     x, _ = _embed_rows(rk, cfg, pl, p, ps, batch)
     b, S = x.shape[0], x.shape[1] * rk.size(pl.seq)
     positions = torch.arange(S, device=x.device)
     every = cfg.attn_every if cfg.family == "hybrid" else 0
     for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
-        if cfg.family in ("ssm", "hybrid"):
+        if audio:
+            names, i = ("k", "v"), li
+            x, (k, v), (ck, cv) = _dec_layer(rk, cfg, pl, pl_, ps_, x, enc, positions,
+                                              impl=impl)
+            _write_prefix(rk, pl, cache["cross_k"][li], ck, pl.cross_seq)
+            _write_prefix(rk, pl, cache["cross_v"][li], cv, pl.cross_seq)
+        elif cfg.family in ("ssm", "hybrid"):
             # the state cache is whole over "model": every rank writes the
             # same values
             x, (conv, last) = _mamba(rk, cfg, pl, pl_, ps_, x, impl=impl, state=True)
@@ -505,6 +616,9 @@ def prefill_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any],
         _write_prefix(rk, pl, cache[names[1]][i], v)
     last = rk.all_gather(x[:, -1:], pl.seq, axis=1)[:, -1]
     cache = dict(cache, len=torch.full((b,), S, dtype=torch.int32, device=x.device))
+    if audio:
+        cache["cross_len"] = torch.full((b,), enc.shape[1], dtype=torch.int32,
+                                        device=x.device)
     return _lm_head(rk, cfg, p, ps, last), cache
 
 
@@ -526,9 +640,17 @@ def _nll(rk, va: Axes, logits, labels):
 
 
 def _train_units(cfg: ModelConfig, pl: Plan, p, ps, positions, *, impl: str):
-    """(tag, fn(rank, x)) per unit of the reference's remat: a layer (moe:
-    fn gives the residual and the layer's load-balance loss); a hybrid
-    segment of `attn_every` Mamba2 layers and the shared block."""
+    """(tag, fn(rank, x, *more)) per unit of the reference's remat: a layer
+    (moe: fn gives the residual and the layer's load-balance loss); a
+    hybrid segment of `attn_every` Mamba2 layers and the shared block; an
+    audio decoder layer, `more` the encoder's output (the encoder's layers:
+    `_encode`)."""
+    if cfg.family == "audio":
+        for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
+            def dec(rk, x, enc, pl_=pl_, ps_=ps_):
+                return _dec_layer(rk, cfg, pl, pl_, ps_, x, enc, positions, impl=impl)[0]
+            yield f"decoder layer {li}", dec
+        return
     if cfg.family not in ("ssm", "hybrid"):
         for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
             def layer(rk, x, pl_=pl_, ps_=ps_):
@@ -564,13 +686,17 @@ def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
     the batch axes before the division.  A rank's labels are gathered over
     their sequence axes (one sequence: every rank holds every row).  moe
     adds 0.01 x the mean over layers of each layer's load-balance loss
-    (`_moe`), which the remat returns beside the residual."""
+    (`_moe`), which the remat returns beside the residual.  audio: the
+    encoder first (`_encode`, a remat per layer), its output an input of
+    every decoder layer's remat; the loss over the decoder's positions."""
+    more = ((_encode(rk, cfg, pl, p, ps, batch["frames"], impl=impl, remat=remat),)
+            if cfg.family == "audio" else ())
     x, tokens = _embed_rows(rk, cfg, pl, p, ps, batch)
     S = x.shape[1] * rk.size(pl.seq)
     positions = torch.arange(S, device=x.device)
     lbs = []
     for tag, unit in _train_units(cfg, pl, p, ps, positions, impl=impl):
-        x = rk.remat(tag, unit, x) if remat else unit(rk, x)
+        x = rk.remat(tag, unit, x, *more) if remat else unit(rk, x, *more)
         if cfg.family == "moe":
             x, lb = x
             lbs.append(lb)
@@ -597,21 +723,33 @@ def loss_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, batch: Dict[str, Any], *,
     return loss + 0.01 * torch.stack(lbs).mean() if lbs else loss
 
 
+def _decode(rk, ca: Axes, q, k, v, lens, *, window: int, impl: str):
+    """Decode attention of q (b, H, hd) over the rank's slices k, v (b, KV,
+    S_max / |ca|, hd) of a cache whose sequence is cut over `ca`: each
+    rank's f32 partial merged by LSE across `ca`
+    (`distributed_decode_local`), or B2 over a whole cache."""
+    if not ca:
+        return ops.decode_attention(q, k, v, lens, sliding_window=window, impl=impl)
+
+    def decode(mesh, q, k, v, lens):
+        return distributed_decode_local(q, k, v, lens, mesh=mesh, seq_axes=ca,
+                                        sliding_window=window)
+    return rk.meet(ca, "decode", decode, q, k, v, lens)
+
+
 def _decode_layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, kc, vc, clen, *,
-                  impl: str, ring_buffer: bool):
-    """One dense, vlm or moe layer of the serve step, or the hybrid's shared
-    block, on the rank's batch rows x (b, d): the token's K/V written into
-    kc / vc, the rank's (b, KV, S_max / |cache_seq|, hd) slices of the
-    layer's cache, where they hold its position."""
+                  impl: str, ring_buffer: bool, cross=None):
+    """One dense, vlm, moe or audio decoder layer of the serve step, or the
+    hybrid's shared block, on the rank's batch rows x (b, d): the token's
+    K/V written into kc / vc, the rank's (b, KV, S_max / |cache_seq|, hd)
+    slices of the layer's cache, where they hold its position.  audio:
+    `cross` = (the rank's slices of the layer's cross K and V over the
+    plan's cross_seq, cross_len), read by the cross attention."""
     eps, theta = cfg.norm_eps, cfg.rope_theta
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
     ca = pl.cache_seq
     window = 0 if ring_buffer else cfg.sliding_window
-
-    def decode(mesh, q, k, v, lens):
-        return distributed_decode_local(q, k, v, lens, mesh=mesh, seq_axes=ca,
-                                        sliding_window=window)
     a, as_ = p["attn"], ps["attn"]
     h = L.rms_norm(x, p["ln1"], eps)
     # every head on every rank: the decode reads q whole, the cache holds
@@ -625,15 +763,19 @@ def _decode_layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, kc, vc, clen, *,
     _write_token(rk, ca, kc, k, pos)
     _write_token(rk, ca, vc, v.reshape(b, KV, hd), pos)
     eff = torch.clamp(clen + 1, max=s_max) if ring_buffer else clen + 1
-    if ca:
-        o = rk.meet(ca, "decode", decode, q, kc, vc, eff)
-    else:
-        o = ops.decode_attention(q, kc, vc, eff, sliding_window=window, impl=impl)
+    o = _decode(rk, ca, q, kc, vc, eff, window=window, impl=impl)
     x = x + _row(rk, o.reshape(b, H * hd), (), a, as_, "wo", ())
     h = L.rms_norm(x, p["ln2"], eps)
     if cfg.family == "moe":
         cf = min(float(cfg.decode_capacity_factor), float(cfg.num_experts))
         return x + _moe(rk, cfg, pl, p["moe"], ps["moe"], h[:, None], (), cf)[0][:, 0]
+    if cross is not None:
+        xk, xv, xlen = cross
+        q = rk.all_gather(*_col(rk, h, p["xattn"], ps["xattn"], "wq", "bq"), axis=-1)
+        o = _decode(rk, pl.cross_seq, q.reshape(b, H, hd), xk, xv, xlen, window=0,
+                    impl=impl)
+        x = x + _row(rk, o.reshape(b, H * hd), (), p["xattn"], ps["xattn"], "wo", ())
+        h = L.rms_norm(x, p["ln3"], eps)
     return x + _mlp(rk, p["mlp"], ps["mlp"], h, ())
 
 
@@ -646,15 +788,19 @@ def serve_rank(rk, cfg: ModelConfig, pl: Plan, p, ps, cache: Dict[str, Any],
     `mamba2.mamba2_step` of the rank's batch rows with every head (its
     weights whole over "model", no collective inside), the new states
     written once every rank has read the old ones (the state cache is
-    whole over "model", so the ranks of one batch slice share it)."""
+    whole over "model", so the ranks of one batch slice share it).  audio:
+    each decoder layer's cross attention over the rank's slice of the cross
+    cache, nothing written there."""
     e, va = _embed(rk, cfg, p, ps, token)
     x = rk.psum(e, va)
     clen = cache["len"]
     kw = dict(impl=impl, ring_buffer=ring_buffer)
     if cfg.family not in ("ssm", "hybrid"):
         for li, (pl_, ps_) in enumerate(zip(p["layers"], ps["layers"])):
+            cross = ((cache["cross_k"][li], cache["cross_v"][li], cache["cross_len"])
+                     if cfg.family == "audio" else None)
             x = _decode_layer(rk, cfg, pl, pl_, ps_, x, cache["k"][li], cache["v"][li],
-                              clen, **kw)
+                              clen, cross=cross, **kw)
         return _lm_head(rk, cfg, p, ps, x), dict(cache, len=clen + 1)
     every = cfg.attn_every if cfg.family == "hybrid" else 0
     conv, ssm = cache["ssm"]

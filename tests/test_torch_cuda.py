@@ -483,9 +483,10 @@ def test_ring_decode_on_card_matches_cpu(cuda):
 
 
 def _partitioned_serving(cuda, cfg, shape):
-    """A prefill of 4 x 32 tokens into a cache of 40 and 3 serve steps of
-    `cfg`, partitioned over four ranks sharing the card (B1 once per
-    attention layer and rank, B3 once per Mamba2 layer and rank, the plain
+    """A prefill of 4 x 32 tokens (audio: 32 frames and a BOS token) into a
+    cache of 40 and 3 serve steps of `cfg`, partitioned over four ranks
+    sharing the card (B1 once per attention layer and rank, the audio
+    decoder's twice, B3 once per Mamba2 layer and rank, the plain
     distributed decode) and over four CPU ranks: the logits and every
     cache tensor to 1e-4, the same collective bytes, B1, B2 and B3 counted
     on the card."""
@@ -496,18 +497,22 @@ def _partitioned_serving(cuda, cfg, shape):
     from repro_torch.models import model as mdl
     from repro_torch.sp.common import GangMesh
     params = mdl.init_params(cfg, seed=0, device="cpu")
-    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
-                           generator=torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
+    audio = cfg.family == "audio"
+    batch = {"tokens": prompt[:, :1] if audio else prompt}
+    if audio:
+        batch["frames"] = torch.randn((4, 32, cfg.d_model), generator=g)
     pre, dec = ShapeConfig("p", 32, 4, "prefill"), ShapeConfig("d", 40, 4, "decode")
     runs, counts = [], []
     before = flash_attention.launches, flash_decode.launches, ssd_scan.launches
     for dev in ("cpu", cuda):
         mesh = GangMesh([dev] * 4, shape, ("data", "model"))
         p = _to(params, dev)
-        cache = mdl.init_cache(cfg, 4, 40, device=dev)
+        cache = mdl.init_cache(cfg, 4, 40, enc_len=32 if audio else 0, device=dev)
         lg, c = steps.build_prefill_step(cfg, pre)(
             shard_tree(p, shd.param_specs(cfg, p, mesh, fsdp=False), mesh),
-            shard_tree({"tokens": prompt.to(dev)}, shd.batch_specs(cfg, pre, mesh), mesh),
+            shard_tree(_to(batch, dev), shd.batch_specs(cfg, pre, mesh), mesh),
             shard_tree(cache, shd.cache_specs(cfg, cache, mesh, global_batch=4), mesh))
         sp = shard_tree(p, shd.param_specs(cfg, p, mesh, fsdp=False), mesh)
         outs = [unshard_tree(lg).cpu()]
@@ -524,8 +529,8 @@ def _partitioned_serving(cuda, cfg, shape):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert counts[1] == counts[0]
     mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
-    attn = {"ssm": 0, "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}.get(
-        cfg.family, cfg.num_layers)
+    attn = {"ssm": 0, "hybrid": cfg.num_layers // max(cfg.attn_every, 1),
+            "audio": cfg.encoder_layers + 2 * cfg.num_layers}.get(cfg.family, cfg.num_layers)
     assert flash_attention.launches == before[0] + attn * 4
     assert flash_decode.launches == before[1]
     assert ssd_scan.launches == before[2] + mamba * 4
@@ -559,7 +564,8 @@ def test_partitioned_moe_steps_on_card_match_cpu(cuda, shape):
 
 
 def _partitioned_training(cuda, cfg, shape):
-    """Two partitioned FSDP train steps of `cfg` on 4 x 32 tokens over four
+    """Two partitioned FSDP train steps of `cfg` on 4 x 32 tokens (audio:
+    and 16 frames each) over four
     ranks sharing the card and over four CPU ranks: loss and grad norm to
     1e-5, the params to 1e-4 but for AdamW's ±lr sign flips, the same
     collective bytes, no kernel launched (the step differentiates the plain
@@ -578,6 +584,8 @@ def _partitioned_training(cuda, cfg, shape):
         tok = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
         batches.append({"tokens": tok,
                         "labels": torch.nn.functional.pad(tok[:, 1:], (0, 1), value=-1)})
+        if cfg.family == "audio":
+            batches[-1]["frames"] = torch.randn((4, 16, cfg.d_model), generator=g)
     shape_cfg = ShapeConfig("t", 32, 4, "train")
     runs = []
     before = flash_attention.launches, flash_decode.launches, ssd_scan.launches
@@ -666,6 +674,61 @@ def test_partitioned_ssm_train_step_on_card_matches_cpu(cuda, shape, arch, kw):
     from repro_torch.configs import get_config, reduced_config
     _partitioned_training(cuda, dataclasses.replace(
         reduced_config(get_config(arch), **kw), dtype="float32"), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_audio_steps_on_card_match_cpu(cuda, shape):
+    """The same for the reduced f32 seamless_m4t_large_v2 (2 encoder and 2
+    decoder layers, 4 MHA heads over the model ranks): 32 frames and a BOS
+    token, the self and the cross cache sequence-sharded."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    _partitioned_serving(cuda, dataclasses.replace(
+        reduced_config(get_config("seamless_m4t_large_v2")), dtype="float32"), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_audio_train_step_on_card_matches_cpu(cuda, shape):
+    """Two partitioned train steps of the reduced f32 seamless_m4t_large_v2
+    (remat per encoder and per decoder layer, the encoder's output an
+    input of each decoder layer's) on the card against the CPU ranks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    _partitioned_training(cuda, dataclasses.replace(
+        reduced_config(get_config("seamless_m4t_large_v2")), dtype="float32"), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["b1_causal_gqa", "b1_encoder", "b1_cross_row",
+                                  "b1_window_offset", "b2_ragged", "b2_cross_full"])
+def test_attention_kernels_match_the_reference_outputs(cuda, name, dtype):
+    """B1 and B2 on the card against the reference's own Pallas outputs
+    (interpret mode on a CPU, tests/data/attention_reference.npz, written
+    by tests/test_torch_kernels.py run as a script; the inputs regenerated
+    from the same numpy seed): f32 to 2e-5 elementwise, bf16 to B1_REL_TOL
+    per (batch, head) (`kernels/checks.py`'s limits); one launch each."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch.kernels.checks import (REFERENCE_CASES, reference_agrees,
+                                            reference_call, reference_inputs)
+    assert name in REFERENCE_CASES
+    data = np.load(Path(__file__).resolve().parent / "data" / "attention_reference.npz")
+    want = torch.from_numpy(data[f"{name}.{dtype}"]).to(cuda)
+    q, k, v, lengths = (None if t is None else torch.from_numpy(t).to(cuda)
+                        for t in reference_inputs(name, dtype))
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+    before = flash_attention.launches + flash_decode.launches
+    got = reference_call(name, q, k, v, lengths, flash_attention, flash_decode)
+    assert flash_attention.launches + flash_decode.launches == before + 1
+    assert got.shape == want.shape and got.dtype == q.dtype
+    reference_agrees(got, want, dtype)
 
 
 def _fixture_cases():

@@ -19,9 +19,8 @@ full width: shapes only, on the meta device.
   full depth, and the replayed q-columns and SSD scans equal to ones run,
   for every family at reduced width;
 * the matrix: the skip set is the reference's `supports_shape` (66 run,
-  14 skipped), one shape per arch runs OK on both production meshes, the
-  partitioned families' archs (`tp.FAMILIES`) with their collective
-  bytes, train's too (the full matrix takes more than a minute on one
+  14 skipped), one shape per arch runs OK on both production meshes, every
+  family's archs (`tp.FAMILIES`) with their collective bytes, train's too (the full matrix takes more than a minute on one
   core: it runs in `chip_smoke.py`'s dryrun phase and `python -m
   repro_torch.launch.dryrun_all`), and the CLIs write their records.
 """
@@ -325,16 +324,17 @@ TRAIN_SMALL = ShapeConfig("train_256", 256, 256, "train")
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_matrix_decode_combo_runs_on_both_meshes(arch):
     """The decode_32k record on both production meshes, and a train
-    record: the partitioned families' (`tp.FAMILIES`) collective bytes by
-    kind (counted by the partitioned steps: tests/test_torch_partition.py,
+    record: every family's (`tp.FAMILIES`) collective bytes by kind
+    (counted by the partitioned steps: tests/test_torch_partition.py,
     tests/test_torch_partition_train.py, tests/test_torch_partition_moe.py,
-    tests/test_torch_partition_ssm.py), the others' null with a reason; the
-    partitioned families' train record at 2 units of depth (a hybrid unit:
-    `attn_every` layers)."""
+    tests/test_torch_partition_ssm.py, tests/test_torch_partition_audio.py);
+    the train record at 2 units of depth (`dryrun._units`: a hybrid unit
+    `attn_every` layers, an audio unit an encoder and a decoder layer)."""
     kinds = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
              "collective-permute", "total"}
     cfg = get_config(arch)
-    partitioned = cfg.family in tp.FAMILIES
+    assert cfg.family in tp.FAMILIES
+    units, cut = dryrun._units(cfg)
     for mp, n in ((False, 256), (True, 512)):
         rec = dryrun.run_combo(arch, "decode_32k", multi_pod=mp)
         assert rec["ok"] and rec["n_devices"] == n
@@ -343,18 +343,15 @@ def test_matrix_decode_combo_runs_on_both_meshes(arch):
         assert mem["fits"] == (mem["per_device_total"] <= 80e9)
         assert mem["temp_size_in_bytes"] > 0 and "estimate" in mem["temp_scope"]
         train = dryrun.run_combo(arch, TRAIN_SMALL, multi_pod=mp,
-                                 layers=2 * (cfg.attn_every or 1) if partitioned else None)
+                                 layers=cut(2).num_layers)
+        assert train["account"]["units"] == 2
         for r in (rec, train):
-            if partitioned:
-                assert set(r["collectives"]) == kinds
-                assert r["collectives"]["total"] == sum(
-                    v for k, v in r["collectives"].items() if k != "total") > 0
-            else:
-                assert r["collectives"] is None and r["collectives_reason"]
-        if partitioned:
-            # FSDP: the weights gathered over the batch axes, their gradients
-            # reduce-scattered back
-            assert train["collectives"]["reduce-scatter"] > 0
+            assert set(r["collectives"]) == kinds and "collectives_reason" not in r
+            assert r["collectives"]["total"] == sum(
+                v for k, v in r["collectives"].items() if k != "total") > 0
+        # FSDP: the weights gathered over the batch axes, their gradients
+        # reduce-scattered back
+        assert train["collectives"]["reduce-scatter"] > 0
         assert rec["cost"]["flops"] > 0
 
 

@@ -5,9 +5,15 @@ oracles, on the same numpy inputs.  f32 throughout; tolerance 2e-5, the
 reference's own kernel tolerance (f32 sums taken in another order).
 
 The hand CUDA kernels run only on the card: tests/test_torch_cuda.py holds
-them to their plain versions there.
+them to their plain versions there, and to the reference's own outputs that
+this file, run as a script, writes to tests/data/attention_reference.npz
+(the Pallas kernels in interpret mode at `kernels/checks.REFERENCE_CASES`,
+f32 and bf16; the inputs are regenerated from a numpy seed on both sides):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_kernels.py
 """
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +25,8 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.flash_decode import flash_decode as j_flash_decode
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.checks import (REFERENCE_CASES, reference_agrees, reference_call,
+                                        reference_inputs)
 from repro_torch.kernels.flash_attention import flash_attention, torch_attention
 from repro_torch.kernels.flash_decode import (flash_decode, split_decode,
                                               split_plan, torch_decode)
@@ -320,3 +328,46 @@ def test_decode_wrapper_refuses(case, exc):
     with pytest.raises(exc, match="flash_decode"):
         flash_decode(q, k, v, torch.empty((2,), dtype=torch.int32, device="meta"))
     assert flash_decode.launches == before
+
+
+# ---- the reference's own outputs, for the card ----------------------------------
+FIXTURE = Path(__file__).resolve().parent / "data" / "attention_reference.npz"
+DTYPES = ("float32", "bfloat16")
+
+
+def _write_fixture(path):
+    """The reference's Pallas B1 and B2 (interpret mode) at every
+    REFERENCE_CASES case and dtype, their outputs as f32 values."""
+    arrays = {}
+    for name in REFERENCE_CASES:
+        for dtype in DTYPES:
+            q, k, v, lengths = reference_inputs(name, dtype)
+            jq, jk, jv = (jnp.asarray(t).astype(dtype) for t in (q, k, v))
+            out = reference_call(
+                name, jq, jk, jv, None if lengths is None else jnp.asarray(lengths),
+                functools.partial(j_flash_attention, interpret=True),
+                functools.partial(j_flash_decode, interpret=True))
+            arrays[f"{name}.{dtype}"] = np.asarray(out.astype(jnp.float32))
+    path.parent.mkdir(exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    print(f"{path}: {path.stat().st_size} bytes")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(REFERENCE_CASES))
+def test_plain_versions_match_the_reference_fixture(name, dtype):
+    """`torch_attention` / `torch_decode` on the fixture's inputs against
+    the reference's Pallas outputs stored in it, within the limits the
+    card's kernels are held to there (f32 2e-5 elementwise, bf16 B1_REL_TOL
+    per (batch, head))."""
+    want = torch.from_numpy(np.load(FIXTURE)[f"{name}.{dtype}"])
+    q, k, v, lengths = (None if t is None else torch.from_numpy(t)
+                        for t in reference_inputs(name, dtype))
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+    got = reference_call(name, q, k, v, lengths, torch_attention, torch_decode)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    reference_agrees(got, want, dtype)
+
+
+if __name__ == "__main__":
+    _write_fixture(FIXTURE)

@@ -22,10 +22,11 @@ reduced f32 configs, the reference's weights bridged.
   (1, 4) of four of them for its own collective bytes.
 * The collective bytes the mesh counts: a closed form per layer on (2, 2)
   and (1, 4), and the dry run's count on meta ranks equal to the CPU
-  ranks' for the same combo; the dry run's dense, vlm and moe records
-  carry them (train too: tests/test_torch_partition_train.py; the moe
-  steps: tests/test_torch_partition_moe.py), the other families' records
-  a reason, and their steps raise on `Sharded` arguments.
+  ranks' for the same combo; the dry run's records of every family carry
+  them (train too: tests/test_torch_partition_train.py; the moe steps:
+  tests/test_torch_partition_moe.py; ssm and hybrid:
+  tests/test_torch_partition_ssm.py; audio:
+  tests/test_torch_partition_audio.py).
 
 The partitioned steps on the card against the CPU ranks' are in
 tests/test_torch_cuda.py, which imports no JAX.
@@ -34,11 +35,13 @@ tests/test_torch_cuda.py, which imports no JAX.
 
 prints the reference's collective bytes beside the port's for the reduced
 dense prefill and serve step and the reduced moe (8 experts), ssm (16
-heads) and hybrid (two segments) prefills on (2, 2) and (1, 4).
+heads), hybrid (two segments) and audio (32 frames and a BOS token)
+prefills on (2, 2) and (1, 4).
 """
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -63,6 +66,7 @@ from repro_torch.launch import shardings as shd
 from repro_torch.launch import steps
 from repro_torch.launch.partition import run_lockstep, shard_tree, unshard_tree
 from repro_torch.models import model as mdl
+from repro_torch.models import tp
 from repro_torch.sp.common import KINDS, GangMesh
 
 torch.set_num_threads(1)
@@ -92,9 +96,12 @@ CONFIGS = {
     "moe": ("olmoe_1b_7b", dict(layers=2, experts=8), 40),
     "ssm": ("mamba2_130m", dict(layers=2), 40),
     "hybrid": ("zamba2_2_7b", dict(layers=4), 40),
+    # tests/test_torch_partition_audio.py's seamless-like config (2 + 2
+    # layers): PROMPT frames and a BOS token into a self cache of 40
+    "audio": ("seamless_m4t_large_v2", dict(layers=2), 40),
 }
 #: the configs whose prefill alone `--bytes` compiles
-BYTES_PREFILL = ("moe", "ssm", "hybrid")
+BYTES_PREFILL = ("moe", "ssm", "hybrid", "audio")
 MESHES = [(1, 4), (2, 2), (4, 1), (2, 4), (1, 8)]
 
 
@@ -392,22 +399,33 @@ def test_lockstep_raises_on_a_rank_that_raises_or_strays():
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2"])
 def test_other_families_are_not_partitioned(arch, models):
-    """The family with no partitioned step yet (audio) raises on `Sharded`
-    arguments (the moe family's: tests/test_torch_partition_moe.py; ssm and
-    hybrid: tests/test_torch_partition_ssm.py)."""
+    """No family is left without a partitioned step: the last one, audio,
+    runs its prefill from `Sharded` arguments on (2, 2) and gives the
+    whole-tensor step's logits and caches (the audio steps in full:
+    tests/test_torch_partition_audio.py; moe: test_torch_partition_moe.py;
+    ssm and hybrid: test_torch_partition_ssm.py)."""
     cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+    assert cfg.family in tp.FAMILIES and set(tp.FAMILIES) == set(mdl.FAMILIES)
     mesh = _mesh((2, 2))
     params = mdl.init_params(cfg, device="cpu")
     pre = ShapeConfig("p", 32, 4, "prefill")
-    cache = steps.cache_structs(cfg, pre)
-    cache = shd.walk(lambda path, x, n: torch.zeros(x.shape, dtype=x.dtype), cache)
-    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
-             for k, v in steps.batch_structs(cfg, pre).items()}
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1)).astype(np.int32)),
+             "frames": torch.from_numpy(rng.standard_normal((4, 32, cfg.d_model))
+                                        .astype(np.float32))}
+
+    def cache():
+        return mdl.init_cache(cfg, 4, 40, enc_len=32, device="cpu")
+    want, want_cache = steps.build_prefill_step(cfg, pre)(params, batch, cache())
+    c = cache()
     args = (shard_tree(params, shd.param_specs(cfg, params, mesh, fsdp=False), mesh),
             shard_tree(batch, shd.batch_specs(cfg, pre, mesh), mesh),
-            shard_tree(cache, shd.cache_specs(cfg, cache, mesh, global_batch=4), mesh))
-    with pytest.raises(NotImplementedError, match=f"not {cfg.family}"):
-        steps.build_prefill_step(cfg, pre)(*args)
+            shard_tree(c, shd.cache_specs(cfg, c, mesh, global_batch=4), mesh))
+    got, got_cache = steps.build_prefill_step(cfg, pre)(*args)
+    torch.testing.assert_close(unshard_tree(got), want, atol=TOL, rtol=TOL)
+    got_cache = unshard_tree(got_cache)
+    for k in ("k", "v", "cross_k", "cross_v", "cross_len", "len"):
+        torch.testing.assert_close(got_cache[k], want_cache[k], atol=TOL, rtol=TOL)
 
 
 def test_mesh_of_one_rank_equals_the_whole_step(models):
@@ -494,10 +512,11 @@ def test_dry_run_records_carry_collective_bytes():
     # mamba2_130m's 24 heads on 16 model ranks take the sequence fallback:
     # the ranks' final states and summed decays are all-gathered
     assert dryrun.run_combo("mamba2_130m", "prefill_32k")["collectives"]["all-gather"] > 0
-    for arch, shape in (("seamless_m4t_large_v2", "prefill_32k"),):
-        rec = dryrun.run_combo(arch, shape)
-        assert rec["collectives"] is None
-        assert "not ported yet" in rec["collectives_reason"]
+    # seamless_m4t_large_v2's cross K/V go into the cross cache by an
+    # all-to-all from their heads, as the self K/V do
+    rec = dryrun.run_combo("seamless_m4t_large_v2", "prefill_32k")
+    assert rec["ok"] and rec["collectives"]["total"] > 0 and "collectives_reason" not in rec
+    assert rec["collectives"]["all-to-all"] > 0
 
 
 # ---- against jax.lax, and the reference's own bytes ---------------------------
@@ -505,11 +524,56 @@ PSUM_SCATTER = {"data_dim1": ("data", 1), "model_dim1": ("model", 1),
                 "model_dim2": ("model", 2), "both_dim1": (("data", "model"), 1)}
 
 
+#: the configs whose serve step the reference compiles beside its prefill
+SERVE_BYTES = ("dense", "audio")
+
+
+def _trip_scaled_bytes(hlo: str) -> dict:
+    """The reference's `collective_bytes_from_hlo` count with every
+    computation's collectives scaled by the trip counts XLA records for the
+    while loops that reach it (``known_trip_count``): that parser reads a
+    loop's count from a constant in its condition and finds the body by a
+    header whose parameters hold no tuple, so it counts a scanned layer
+    loop's body once where its condition compares two parameters."""
+    from repro.launch.dryrun import _COLLECTIVES, _shape_bytes
+    colls, calls, comp = {}, [], "ENTRY"
+    for line in hlo.splitlines():
+        st = line.strip()
+        head = re.match(r"^(ENTRY\s+)?%?([\w.\-]+)\s*\(.*\)\s*->.*\{$", st)
+        if head:
+            comp = "ENTRY" if head.group(1) else head.group(2)
+            continue
+        for kind in _COLLECTIVES:
+            if re.search(rf"\b{kind}(-start|-done)?\(", st):
+                done = kind == "all-gather" and "-done(" in st   # counted at -start
+                colls.setdefault(comp, []).append(
+                    (kind, 0 if done else _shape_bytes(st.split(f" {kind}", 1)[0])))
+                break
+        trip = re.search(r'"known_trip_count":\{"n":"(\d+)"', st)
+        body = re.search(r"body=%?([\w.\-]+)", st)
+        for callee in re.findall(r"(?:body|condition|calls|to_apply)=%?([\w.\-]+)", st):
+            n = int(trip.group(1)) if trip and body and callee == body.group(1) else 1
+            calls.append((comp, callee, n))
+    mult = {"ENTRY": 1}
+    for _ in range(len(calls) + 1):
+        for caller, callee, n in calls:
+            if caller in mult:
+                mult[callee] = max(mult.get(callee, 0), mult[caller] * n)
+    out = dict.fromkeys(_COLLECTIVES, 0)
+    for c, ops in colls.items():
+        for kind, b in ops:
+            out[kind] += b * mult.get(c, 1)
+    out["total"] = sum(out.values())
+    return out
+
+
 def _jax_outputs(path, more=False):
     """psum_scatter of jax.lax on a (4, 2) mesh, and the reference's
-    collective bytes of its partitioned dense prefill and serve step (with
-    `more`, also of the BYTES_PREFILL configs' prefill) on (2, 2) and (1, 4)
-    meshes of four devices; needs 8 XLA devices."""
+    collective bytes of its partitioned dense and audio prefill and serve
+    step (with `more`, also of the BYTES_PREFILL configs' prefill) on (2, 2)
+    and (1, 4) meshes of four devices, as its parser counts them and with
+    the layer loops' trip counts (`_trip_scaled_bytes`, "<key>_scaled");
+    needs 8 XLA devices."""
     from jax.sharding import Mesh, NamedSharding
     from jax.sharding import PartitionSpec as P
 
@@ -527,13 +591,17 @@ def _jax_outputs(path, more=False):
             fn, mesh=mesh, in_specs=(P(("data", "model")),),
             out_specs=P(("data", "model")), check_vma=False)(x))
     ref = {}
-    for name in ("dense",) + (BYTES_PREFILL if more else ()):
+    for name in SERVE_BYTES + tuple(n for n in BYTES_PREFILL if more and n not in SERVE_BYTES):
         jcfg, _ = _configs(name)
         pre, dec = _shapes(B, PROMPT, name)
         s_max = CONFIGS[name][2]
         params = jax.eval_shape(lambda: jmdl.init_params(jax.random.PRNGKey(0), jcfg))
-        cache = jax.eval_shape(lambda: jmdl.init_cache(jcfg, B, s_max))
-        batch = {"tokens": jax.ShapeDtypeStruct((B, PROMPT), jnp.int32)}
+        audio = jcfg.family == "audio"
+        cache = jax.eval_shape(lambda: jmdl.init_cache(jcfg, B, s_max,
+                                                       enc_len=PROMPT if audio else 0))
+        batch = {"tokens": jax.ShapeDtypeStruct((B, 1 if audio else PROMPT), jnp.int32)}
+        if audio:
+            batch["frames"] = jax.ShapeDtypeStruct((B, PROMPT, jcfg.d_model), jnp.float32)
         for shape in ((2, 2), (1, 4)):
             m = Mesh(np.array(jax.devices()[:4]).reshape(shape), ("data", "model"))
             p_sh = jshd.to_shardings(m, jshd.param_specs(jcfg, params, m, fsdp=False))
@@ -544,14 +612,15 @@ def _jax_outputs(path, more=False):
             with m:
                 f_pre = jax.jit(jst.build_prefill_step(jcfg, pre, mesh=m),
                                 in_shardings=(p_sh, b_sh, c_sh), out_shardings=(None, c_sh))
-                ref[f"prefill_{tag}"] = collective_bytes_from_hlo(
-                    f_pre.lower(params, batch, cache).compile().as_text())
-                if name == "dense":
+                hlo = {"prefill": f_pre.lower(params, batch, cache).compile().as_text()}
+                if name in SERVE_BYTES:
                     f_dec = jax.jit(jst.build_serve_step(jcfg, dec, mesh=m),
                                     in_shardings=(p_sh, c_sh, t_sh), out_shardings=(None, c_sh))
-                    ref[f"serve_{tag}"] = collective_bytes_from_hlo(
-                        f_dec.lower(params, cache, jax.ShapeDtypeStruct((B,), jnp.int32))
-                        .compile().as_text())
+                    hlo["serve"] = f_dec.lower(
+                        params, cache, jax.ShapeDtypeStruct((B,), jnp.int32)).compile().as_text()
+                for step, text in hlo.items():
+                    ref[f"{step}_{tag}"] = collective_bytes_from_hlo(text)
+                    ref[f"{step}_{tag}_scaled"] = _trip_scaled_bytes(text)
     out["reference_bytes"] = np.frombuffer(json.dumps(ref).encode(), np.uint8)
     np.savez(path, x=x, **out)
 
@@ -591,6 +660,28 @@ def test_reference_moves_the_kinds_the_port_moves(jax_out, models):
         assert ref[f"serve_{tag}"]["all-reduce"] > 0
 
 
+@pytest.mark.parametrize("tag", ["2x2", "1x4"])
+def test_reference_audio_prefill_moves_the_ports_bytes(tag, jax_out, models):
+    """The reference's partitioned audio prefill (32 frames and a BOS token
+    into a self cache of 40), its scanned encoder and decoder loops counted
+    with XLA's trip counts, moves the port's bytes kind by kind: the
+    encoder's wo and w_down sums all-reduced over a residual whole over
+    "model", the BOS row's K/V gathered over their heads, the cross K/V
+    all-to-all'd into the cross cache's slices.  Its serve step all-reduces
+    the port's bytes (both merge the cross decode's partials over the cross
+    cache's sequence; XLA also gathers the SwiGLU product and the cross
+    logits' maxima, so it gathers more)."""
+    ref = json.loads(jax_out["reference_bytes"].tobytes())
+    _, cfg = _configs("audio")
+    pre, dec = _shapes(B, PROMPT, "audio")
+    mesh = _mesh(tuple(int(n) for n in tag.split("x")))
+    assert ref[f"prefill_{tag}_audio_scaled"] == dryrun.collective_bytes(
+        cfg, pre, mesh, max_len=CONFIGS["audio"][2])
+    port = dryrun.collective_bytes(cfg, dec, mesh)
+    got = ref[f"serve_{tag}_audio_scaled"]
+    assert got["all-reduce"] == port["all-reduce"] and got["all-gather"] > port["all-gather"]
+
+
 def main(argv):
     if argv[:1] == ["--bytes"]:
         env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -600,8 +691,8 @@ def main(argv):
         path.parent.mkdir(exist_ok=True)
         subprocess.run([sys.executable, __file__, str(path), "--more"], env=env, check=True)
         ref = json.loads(np.load(path)["reference_bytes"].tobytes())
-        for name, kinds in [("dense", ("prefill", "serve"))] + [(n, ("prefill",))
-                                                               for n in BYTES_PREFILL]:
+        for name, kinds in [(n, ("prefill", "serve")) for n in SERVE_BYTES] + [
+                (n, ("prefill",)) for n in BYTES_PREFILL if n not in SERVE_BYTES]:
             _, cfg = _configs(name)
             pre, dec = _shapes(B, PROMPT, name)
             for shape in ((2, 2), (1, 4)):
@@ -612,7 +703,9 @@ def main(argv):
                         "serve": dryrun.collective_bytes(cfg, dec, mesh)}
                 for step in kinds:
                     print(json.dumps({"config": name, "mesh": tag, "step": step,
-                                      "reference": ref[f"{step}_{tag}"], "port": port[step]}))
+                                      "reference": ref[f"{step}_{tag}"],
+                                      "reference_trip_scaled": ref[f"{step}_{tag}_scaled"],
+                                      "port": port[step]}))
         return 0
     _jax_outputs(argv[0], more="--more" in argv)
     return 0
