@@ -118,7 +118,9 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
 19. dryrun   — the dry run's meta account (``launch/dryrun.py``): the
                80-combo matrix through ``dryrun_all.run_matrix`` (66 OK,
                14 SKIP, 0 FAIL; how many fit 80 GB per device on each
-               production mesh; host work on the meta device, run in a
+               production mesh, and the combos whose verdict the
+               per-device account moved from the whole step's peak over n,
+               `fits_changed`; host work on the meta device, run in a
                process of its own from the start of the script); the
                account of the runs the ``train``, ``vlm`` and ``ring``
                phases measured, on a one-card host
@@ -149,7 +151,15 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                layers x ranks per prefill, no B2; the collective bytes
                counted on the card equal to the dry run's count
                (``dryrun.collective_bytes``, what run_combo records) for
-               the same arch, shapes, cache length and mesh; qwen2_7b's 28 heads on (1, 8)
+               the same arch, shapes, cache length and mesh; the card's
+               rise in memory over one bf16 serve step of llama31_70b
+               within ACCOUNT_TOL of n x the dry run's per-device account
+               (its ranks share the card and their shards are views, so
+               the rise is every rank's temporaries and new outputs; the
+               account with the decode's partials left out must read
+               outside, and the old estimate, the whole step's peak, is
+               reported beside it), over the prefill reported (the card
+               runs B1, the account the plain attention); qwen2_7b's 28 heads on (1, 8)
                through the sequence fallback (B1 at q_offset) the same way, and
                phi3_14b's 40 q / 10 KV heads on (1, 4), whose KV heads stay whole
                and reach B1 repeated per query head;
@@ -163,7 +173,11 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                a gradient reduce-scatter that drops the last rank's partial
                must read above it on every leaf it touches), no kernel
                launched, the card's collective bytes equal to the dry run's
-               count; reported: step and gradient seconds against the
+               count, the card's rise in memory over the timed step within
+               ACCOUNT_TOL of n x the dry run's per-device account
+               (``_held_account``: rank 0's FSDP-gathered weights left out
+               reported, the forward and backward left out reading
+               outside); reported: step and gradient seconds against the
                whole-tensor step's, a profiled step's idle share and
                operations, the card's peak, each rank's parameter, gradient
                and moment GB; in f32 at PT_F32_LAYERS layers, two steps of
@@ -1944,6 +1958,100 @@ def _account_holds(torch, dev):
     return holds
 
 
+@contextlib.contextmanager
+def _uncounted(obj, name):
+    """Within: ``obj.<name>`` runs outside the dry run's account (its
+    storages, FLOPs and bytes never count): a planted fault of the
+    per-device account."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    fn = getattr(obj, name)
+
+    def uncounted(*a, **kw):
+        with _disable_current_modes():
+            return fn(*a, **kw)
+    setattr(obj, name, uncounted)
+    try:
+        yield
+    finally:
+        setattr(obj, name, fn)
+
+
+def _held_account(arch, shape, layers, mesh, rise_gb, faults=None, max_len=None):
+    """The dry run's per-device account of the partitioned step of `shape`
+    (`dryrun.run_combo` of `arch` at `layers` on `mesh`, a host mesh whose
+    ranks share the card; with `max_len`, the prefill into that cache,
+    `dryrun.rank_account`): its temp and new outputs times the ranks,
+    against `rise_gb`, the card's rise in memory over one such step (the
+    ranks' shards are views, so the rise is every rank's temporaries and
+    new outputs), and the whole step's peak (the old estimate, whole / n x
+    n) beside it.  `faults` ({name: (object, attribute)}), where given,
+    are planted faults, each the account with that function left out
+    (`_uncounted`); the account must then read within ACCOUNT_TOL and the
+    last fault outside it.  Returns the readings, each as a ratio to the
+    rise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    n = mesh.n_ranks
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+
+    parts = []
+
+    def account(n_parts=0):
+        if max_len is not None:
+            acct = dryrun.rank_account(cfg, shape, mesh, max_len=max_len, parts=n_parts)
+            parts[:] = acct.get("parts", [])
+            return n * (acct["temp"] + acct["new_out"]) / 1e9
+        mem = dryrun.run_combo(arch, shape, layers=layers, mesh=mesh, parts=n_parts)["memory"]
+        parts[:] = [(p["bytes"], p["what"], p["count"]) for p in mem.get("temp_parts", [])]
+        return n * (mem["temp_size_in_bytes"] + mem["output_size_in_bytes"]
+                    - mem["alias_size_in_bytes"]) / 1e9
+    t0 = time.perf_counter()
+    got = account(4)
+    whole = dryrun.step_account(cfg, shape)
+    old = (whole["temp"] + whole["new_out"]) / 1e9
+    row = dict(card_rise_gb=rise_gb, account_gb=got, ratio=got / rise_gb,
+               old_estimate_gb=old, old_estimate_ratio=old / rise_gb,
+               # the largest groups of storages live at rank 0's peak
+               rank0_peak_parts=[f"{c} x {what}: {b / 1e9:.4f} GB" for b, what, c in parts])
+    if not faults:
+        return dict(row, account_s=time.perf_counter() - t0)
+    row["faults"] = {}
+    for name, (obj, attr) in faults.items():
+        with _uncounted(obj, attr):
+            row["faults"][name] = account() / rise_gb
+    row["fault_held"] = name
+    row["account_s"] = time.perf_counter() - t0
+    if abs(row["ratio"] - 1) > ACCOUNT_TOL:
+        raise AssertionError(f"the per-device account of {arch} {shape.name} on {dict(mesh.shape)}"
+                             f" reads {row['ratio']:.3f} of the card's rise (readings: {row})")
+    if abs(row["faults"][name] - 1) <= ACCOUNT_TOL:
+        raise AssertionError(f"the account of {arch} {shape.name} on {dict(mesh.shape)} with "
+                             f"{name} left out reads {row['faults'][name]:.3f}, inside the limit")
+    return row
+
+
+def _train_faults():
+    """The planted faults of the train step's account: rank 0's
+    FSDP-gathered weights left out (at PT_LAYERS the step peaks in the
+    optimizer's update of the head, where no gathered weight is alive, so
+    it reads inside the limit, reported), then the forward and backward
+    (`partition.loss_and_grads`: the gradients) left out, held."""
+    from repro_torch.launch import partition
+    from repro_torch.models import tp
+    return {"gathered_weights": (tp, "_weight"), "gradients": (partition, "loss_and_grads")}
+
+
+def _serve_faults():
+    """The planted faults of the serve step's account: the gathered weights
+    left out (no FSDP in the serve step: reported), then the decode's f32
+    partials over the rank's slice of the cache (`tp.distributed_decode_local`)
+    left out, held."""
+    from repro_torch.models import tp
+    return {"gathered_weights": (tp, "_weight"),
+            "decode_partials": (tp, "distributed_decode_local")}
+
+
 def _rel_norms(got, want, vocab=None):
     """Per step, the largest ||got - want|| / ||want|| over the batch's rows,
     over the first `vocab` logits (the padded vocabulary's -1e30 would
@@ -2094,7 +2202,12 @@ def phase_dryrun(torch, dev, smi, matrix_job):
                   ok_per_mesh={m: sum(r["mesh"] == m for r in ok)
                                for m in ("pod16x16", "pod2x16x16")},
                   largest_per_device_gb=largest["memory"]["per_device_total"] / 1e9,
-                  largest=dryrun.tag(largest))
+                  largest=dryrun.tag(largest),
+                  # the combos whose verdict the per-device account moved
+                  # from the whole step's peak over n
+                  fits_changed=[dryrun.tag(r) for r in ok if r["memory"]["fits"] != (
+                      r["memory"]["per_device_total_whole_step_over_n"]
+                      <= r["hbm_per_device"])])
     holds = _account_holds(torch, dev)
     decode, launches = {}, dict.fromkeys(_counters(), 0)
     for name, args in (
@@ -2235,7 +2348,7 @@ def _dropping_expert_partial(cfg, mesh, victim):
         moe.expert_partial = partial
 
 
-def _partition_case(torch, dev, arch, layers, dtype, meshes):
+def _partition_case(torch, dev, arch, layers, dtype, meshes, account=False):
     """One model at full width, `layers` deep, in `dtype`: the unpartitioned
     prefill (B1) and PARTITION_STEPS greedy serve steps (B2), then per mesh
     shape the same from shards of the same weights (views) on ranks that
@@ -2246,7 +2359,10 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
     expert sum) and the serve step's all-reduce (bf16, the first mesh), moe's
     routing flips per layer, and for the record wall seconds, the device's
     idle share and operations of a serve step, the card's peak and each
-    rank's argument bytes."""
+    rank's argument bytes.  With `account` (bf16), the dry run's per-device
+    account against the card's rise in memory over one serve step, held
+    (`_held_account`), and over the prefill, reported (the card runs B1,
+    the account the plain attention)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels.checks import rel_err
@@ -2327,10 +2443,13 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
                     shd.per_device_bytes(params, pspecs, mesh)
                     + shd.per_device_bytes(c, cspecs, mesh))
         p, b, c, rank_bytes = shards(mesh)
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         mesh.reset_bytes()
         with _routes() as rank_routes:
             (lg_s, c), p_pre_s, pc = _run_counted(torch, lambda: prefill(p, b, c))
+        pre_rise = (torch.cuda.max_memory_allocated() - before) / 1e9
         pre_bytes = dict(mesh.collective_bytes[0])
         _expect("partition", f"{arch} {tag} flash_attention per prefill",
                 pc["flash_attention"], layers * n)
@@ -2431,6 +2550,21 @@ def _partition_case(torch, dev, arch, layers, dtype, meshes):
             tok = partition.shard_tree(want[0][0], tspec, mesh)
             back = partition.Sharded([dict(t, len=t["len"] - 2) for t in c.local],
                                      c.specs, mesh)
+            if account:
+                # the card's rise over one serve step against the dry
+                # run's per-device account (both the plain distributed
+                # decode), and over the prefill above (B1 against the
+                # plain attention: reported)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                serve(p, back, tok)
+                torch.cuda.synchronize()
+                step_rise = (torch.cuda.max_memory_allocated() - before) / 1e9
+                row["account"] = {
+                    "serve_step": _held_account(arch, dec, layers, mesh, step_rise,
+                                                _serve_faults()),
+                    "prefill": _held_account(arch, pre, layers, mesh, pre_rise, max_len=C)}
             row["serve_step_profile"] = _profile_steps(
                 torch, lambda: serve(p, back, tok), 2)
         if bf16 and shape == meshes[0]:
@@ -2502,10 +2636,11 @@ def phase_partition(torch, dev, smi):
             ("qwen2_7b_f32", "qwen2_7b", PARTITION_F32_LAYERS, "float32", ((1, 8),)),
             ("phi3_14b_bf16", "phi3_14b", PARTITION_F32_LAYERS, "bfloat16", ((1, 4),)),
             ("phi3_14b_f32", "phi3_14b", PARTITION_F32_LAYERS, "float32", ((1, 4),))):
-        runs[name], counts = _partition_case(torch, dev, arch, layers, dtype, meshes)
+        runs[name], counts = _partition_case(torch, dev, arch, layers, dtype, meshes,
+                                             account=name == "llama31_70b_bf16")
         for k, v in counts.items():
             launches[k] += v
-    _say("partition", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL,
+    _say("partition", nvidia_smi=smi, rel_tol=PARTITION_REL_TOL, account_tol=ACCOUNT_TOL,
          f32_tol=PARTITION_F32_TOL,
          cut=f"llama31_70b {PARTITION_LAYERS} of 80 layers in bf16, {PARTITION_F32_LAYERS} "
          f"in f32; qwen2_7b and phi3_14b {PARTITION_F32_LAYERS}", runs=runs, launches=launches,
@@ -2547,14 +2682,16 @@ def _pt_shards(cfg, params, mesh, clone):
 
 
 def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
-             model_psum_fault=None):
+             model_psum_fault=None, account=False):
     """The partitioned FSDP train step of `arch` at full width against the
     whole-tensor step from the same weights (module doc, 21): bf16 at
     `layers` on each of `meshes` (the fault on (4, 1); with `profile` one
     more step profiled; with `model_psum_fault` a leaf name, on (1, 4) the
     last model rank's partial dropped from that leaf's gradient sum over
-    "model", `_dropping_model_partial`), f32 at `f32_layers`, two steps
-    each; returns {"<arch>_bf16", "<arch>_f32"}."""
+    "model", `_dropping_model_partial`; with `account` the dry run's
+    per-device account against the card's rise in memory over the timed
+    step, `_held_account`), f32 at `f32_layers`, two steps each; returns
+    {"<arch>_bf16", "<arch>_f32"}."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2630,12 +2767,15 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
         del grads, base
         torch.cuda.empty_cache()
         sp, so, rank_gb = _pt_shards(cfg, params, mesh, clone=True)
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         mesh.reset_bytes()
         (_, so, info), step_s, sc = _run_counted(
             torch, lambda: steps.build_train_step(cfg)(sp, so, b))
         counted = dict(mesh.collective_bytes[0])
         peak = torch.cuda.max_memory_allocated() / 1e9
+        rise = (torch.cuda.max_memory_allocated() - before) / 1e9
         prof = (_profile_steps(torch, lambda: steps.build_train_step(cfg)(sp, so, b), 1)
                 if profile else "not measured")
         del sp, so
@@ -2654,6 +2794,12 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
                    dry_run_count_s=dry_s,
                    step_profile=prof, **routing)
         fails = []
+        if account:
+            try:
+                row["account"] = _held_account(arch, shape, layers, mesh, rise,
+                                               _train_faults())
+            except AssertionError as e:
+                fails.append(str(e))
         if moe and max(routing["routing_flip_share_per_layer"]) > ROUTING_FLIP_TOL:
             fails.append(f"routing flips {max(routing['routing_flip_share_per_layer']):.3e} "
                          f"above {ROUTING_FLIP_TOL}")
@@ -2784,8 +2930,10 @@ def _pt_case(torch, dev, arch, layers, f32_layers, meshes, profile=True,
 def phase_partition_train(torch, dev, smi):
     """The partitioned FSDP train step (module doc, 21)."""
     t0 = time.perf_counter()
-    runs = _pt_case(torch, dev, "mistral_7b", PT_LAYERS, PT_F32_LAYERS, PT_MESHES)
-    _say("partition_train", nvidia_smi=smi, cut=f"{PT_LAYERS} of 32 layers "
+    runs = _pt_case(torch, dev, "mistral_7b", PT_LAYERS, PT_F32_LAYERS, PT_MESHES,
+                    account=True)
+    _say("partition_train", nvidia_smi=smi, account_tol=ACCOUNT_TOL,
+         cut=f"{PT_LAYERS} of 32 layers "
          f"(bf16; f32 {PT_F32_LAYERS}): the whole-tensor and the partitioned step each hold "
          "their own weights and moments", loss_tol=PT_LOSS_TOL, rel_tol=PARTITION_REL_TOL,
          runs=runs, launches=dict.fromkeys(_counters(), 0),

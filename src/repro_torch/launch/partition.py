@@ -27,9 +27,12 @@ runs on a `_MetaGroup`, the mesh of its own axes with every member holding
 rank 0's shapes (which SPMD gives every member): one member's result,
 computed once and handed to all, its bytes counted for rank 0, as the
 reference's ``collective_bytes_from_hlo`` counts one device's program.
-The sequence-sharded decode (`sp.decode.distributed_decode_local`) runs on
-that group as on any mesh: each member's partial from the same shapes,
-then the group's pmax and psums.
+The group is `uniform`: under autograd a collective is one node over rank
+0's tensor (`sp.common.collective`), and the sequence-sharded decode
+(`sp.decode.distributed_decode_local`) computes one member's partial and
+hands it to all before the group's pmax and psums, so what rank 0's body
+holds and computes is what one device of the SPMD program does (the dry
+run's per-device account, `launch/dryrun.py`).
 """
 from __future__ import annotations
 
@@ -119,7 +122,10 @@ class _MetaGroup(GangMesh):
     """The meta mesh of one collective's axes, every member holding the same
     shapes: each collective computes one member's result (tiled, as
     `GangMesh`'s), counts its bytes for rank 0 of `parent` (a group of one
-    counts nothing) and hands it to every member."""
+    counts nothing) and hands it to every member.  A result is a storage of
+    its own, as on a device."""
+
+    uniform = True
 
     def __init__(self, parent: GangMesh, axes: Tuple[str, ...]):
         shape = tuple(parent.shape[a] for a in axes)
@@ -150,7 +156,7 @@ class _MetaGroup(GangMesh):
 
     def psum_scatter(self, xs, axes, *, scatter_dimension: int):
         piece = xs[0].tensor_split(self.axis_size(axes), scatter_dimension)[0]
-        return self._one("reduce-scatter", piece.contiguous())
+        return self._one("reduce-scatter", piece.clone(memory_format=torch.contiguous_format))
 
 
 #: a meta mesh's groups, one per tuple of axes (the backward of a

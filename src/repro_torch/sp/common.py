@@ -75,7 +75,11 @@ class GangMesh:
     """`devices` (one per rank) shaped `shape` over `axis_names`, ranks in
     row-major order: rank r sits at ``np.unravel_index(r, shape)``.  Over a
     tuple of axes, a rank's index is its coordinates on them read
-    major-first, as ``jax.lax.axis_index`` reads a tuple."""
+    major-first, as ``jax.lax.axis_index`` reads a tuple.  `uniform`: every
+    rank holds the same tensors (a dry run's meta group), so work done per
+    rank runs on rank 0's alone and its result stands for every rank's."""
+
+    uniform = False
 
     def __init__(self, devices: Sequence, shape: Sequence[int],
                  axis_names: Sequence[str]):
@@ -260,12 +264,19 @@ def collective(mesh: GangMesh, name: str, xs: List[torch.Tensor], axes: Axes,
                **kw) -> List[torch.Tensor]:
     """``mesh.<name>(xs, axes, **kw)``; under autograd, where a rank's
     tensor requires grad, one node over every rank's tensor whose backward
-    runs the dual collective (`_dual`) on `mesh`, counted as any other."""
+    runs the dual collective (`_dual`) on `mesh`, counted as any other
+    (on a `uniform` mesh, a node over rank 0's tensor alone)."""
     run = getattr(mesh, name)
     if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
         return run(xs, axes, **kw)
     dual, dual_kw = _dual(name, kw)
     back = getattr(mesh, dual)
+    if mesh.uniform:
+        # one node over rank 0's tensor: its result and gradient every rank's
+        n = mesh.n_ranks
+        return list(_Collective.apply(lambda ys: run(ys * n, axes, **kw)[:1],
+                                      lambda gs: back(gs * n, axes, **dual_kw)[:1],
+                                      xs[0])) * n
     return list(_Collective.apply(lambda ys: run(ys, axes, **kw),
                                   lambda gs: back(gs, axes, **dual_kw), *xs))
 

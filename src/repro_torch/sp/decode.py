@@ -23,37 +23,51 @@ def distributed_decode_local(q: List[torch.Tensor], k: List[torch.Tensor],
                              sliding_window: int = 0) -> List[torch.Tensor]:
     """Per-rank lists: q[r] (B,H,D) replicated over `seq_axes`; k/v[r]
     (B,KV,S_loc,D) = rank r's KV slice; cache_len[r] (B,) GLOBAL valid
-    length."""
-    m, l, o = [], [], []
-    for r in range(mesh.n_ranks):
-        qr, kr, vr, cl = q[r], k[r], v[r], cache_len[r].long()
-        d, s_loc = qr.shape[-1], kr.shape[2]
-        start = mesh.axis_index(r, seq_axes) * s_loc
-        # the window's first key: newest (cl - 1) - window + 1
-        lo = ((cl - sliding_window).clamp_min(0) if sliding_window
-              else torch.zeros_like(cl))
-        n_rep = qr.shape[1] // kr.shape[1]
-        kf = kr.repeat_interleave(n_rep, 1).float()
-        vf = vr.repeat_interleave(n_rep, 1).float()
-        logits = torch.einsum("bhd,bhkd->bhk", qr.float(), kf) * d ** -0.5
-        kpos = start + torch.arange(s_loc, device=kr.device)[None]  # global
-        valid = (kpos < cl[:, None]) & (kpos >= lo[:, None])
-        logits = logits.masked_fill(~valid[:, None], float("-inf"))
-        mr = logits.amax(-1)                                       # (B,H)
-        m_safe = torch.where(torch.isneginf(mr), 0.0, mr)
-        p = torch.exp(logits - m_safe[..., None])
-        m.append(mr)
-        l.append(p.sum(-1))
-        o.append(torch.einsum("bhk,bhkd->bhd", p, vf))
+    length.  Each operation runs on every rank's tensors before the next,
+    as the ranks of an SPMD program run it, so ranks that share a device
+    hold their partials at once as separate devices would; on a `uniform`
+    mesh (a dry run's meta group) on rank 0's alone, its results every
+    rank's."""
+    ranks = range(1 if mesh.uniform else mesh.n_ranks)
+
+    def each(fn, *lists):
+        return [fn(r, *(x[r] for x in lists)) for r in ranks]
+
+    def every(xs):
+        return xs * (mesh.n_ranks // len(xs))
+    d, s_loc = q[0].shape[-1], k[0].shape[2]
+    n_rep = q[0].shape[1] // k[0].shape[1]
+    cl = each(lambda r, c: c.long(), cache_len)
+    # the window's first key: newest (cl - 1) - window + 1
+    lo = each(lambda r, c: (c - sliding_window).clamp_min(0) if sliding_window
+              else torch.zeros_like(c), cl)
+    kf = each(lambda r, x: x.repeat_interleave(n_rep, 1), k)
+    kf = each(lambda r, x: x.float(), kf)
+    vf = each(lambda r, x: x.repeat_interleave(n_rep, 1), v)
+    vf = each(lambda r, x: x.float(), vf)
+    logits = each(lambda r, x, y: torch.einsum("bhd,bhkd->bhk", x.float(), y) * d ** -0.5,
+                  q, kf)
+
+    def valid(r, x, c, l0):
+        kpos = (mesh.axis_index(r, seq_axes) * s_loc
+                + torch.arange(s_loc, device=x.device)[None])             # global
+        return (kpos < c[:, None]) & (kpos >= l0[:, None])
+    logits = each(lambda r, lg, ok: lg.masked_fill(~ok[:, None], float("-inf")),
+                  logits, each(valid, k, cl, lo))
+    m = each(lambda r, lg: lg.amax(-1), logits)                           # (B,H)
+    p = each(lambda r, lg, mr: torch.exp(lg - torch.where(torch.isneginf(mr), 0.0, mr)[..., None]),
+             logits, m)
+    l = each(lambda r, x: x.sum(-1), p)
+    o = each(lambda r, x, y: torch.einsum("bhk,bhkd->bhd", x, y), p, vf)
     # LSE-weighted merge across shards
-    g_m = mesh.pmax(m, seq_axes)
-    w = [torch.where(torch.isneginf(mr), 0.0,
-                     torch.exp(mr - torch.where(torch.isneginf(g), 0.0, g)))
-         for mr, g in zip(m, g_m)]
-    num = mesh.psum([a * b[..., None] for a, b in zip(o, w)], seq_axes)
-    den = mesh.psum([a * b for a, b in zip(l, w)], seq_axes)
-    return [(a / b.clamp_min(1e-38)[..., None]).to(x.dtype)
-            for a, b, x in zip(num, den, q)]
+    g_m = mesh.pmax(every(m), seq_axes)
+    w = each(lambda r, mr, g: torch.where(torch.isneginf(mr), 0.0,
+                                          torch.exp(mr - torch.where(torch.isneginf(g), 0.0, g))),
+             m, g_m)
+    num = mesh.psum(every(each(lambda r, a, b: a * b[..., None], o, w)), seq_axes)
+    den = mesh.psum(every(each(lambda r, a, b: a * b, l, w)), seq_axes)
+    return every(each(lambda r, a, b, x: (a / b.clamp_min(1e-38)[..., None]).to(x.dtype),
+                      num, den, q))
 
 
 def distributed_decode_attention(q: torch.Tensor, k: torch.Tensor,

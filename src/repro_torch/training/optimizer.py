@@ -63,19 +63,23 @@ def _factored(p: torch.Tensor, n_stack: int) -> bool:
 def _zip(params, *trees):
     """[(leaf, n_stack, *leaves of the other trees at its place)], in order."""
     out = []
-
-    def walk(p, others, n_stack, key):
-        if isinstance(p, dict):
-            for k in p:
-                walk(p[k], [o[k] for o in others], n_stack, k)
-        elif isinstance(p, list):
-            n = len(p) if key in STACKED else n_stack
-            for i, v in enumerate(p):
-                walk(v, [o[i] for o in others], n, key)
-        else:
-            out.append((p, n_stack, *others))
-    walk(params, list(trees), 0, "")
+    _zip_into(out, params, list(trees), 0, "")
     return out
+
+
+def _zip_into(out, p, others, n_stack, key):
+    """`_zip`'s walk, at module level: a nested recursive function would
+    close over itself and `out`, a cycle that keeps every gradient alive
+    until the garbage collector runs."""
+    if isinstance(p, dict):
+        for k in p:
+            _zip_into(out, p[k], [o[k] for o in others], n_stack, k)
+    elif isinstance(p, list):
+        n = len(p) if key in STACKED else n_stack
+        for i, v in enumerate(p):
+            _zip_into(out, v, [o[i] for o in others], n, key)
+    else:
+        out.append((p, n_stack, *others))
 
 
 def adamw_init(params) -> AdamWState:

@@ -634,6 +634,51 @@ def test_partitioned_train_step_on_card_matches_cpu(cuda, shape):
 
 
 @pytest.mark.cuda
+def test_partitioned_train_step_memory_matches_the_dry_run(cuda):
+    """mistral_7b at full width, 2 layers, 4 x 2048 tokens in bf16, its
+    partitioned FSDP train step on four ranks sharing the card as (1, 4):
+    the card's rise in memory over one step (after a first, every rank's
+    temporaries and new outputs: the shards are views) within 10 % of four
+    times the dry run's per-device account (`dryrun.run_combo` on that
+    mesh: rank 0's temp and new outputs), as chip_smoke.py's
+    `partition_train` line holds it on every mesh."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, partition, steps, train
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import init_params
+    from repro_torch.sp.common import GangMesh
+    from repro_torch.training import adamw_init
+
+    cfg = dataclasses.replace(get_config("mistral_7b"), num_layers=2)
+    shape = ShapeConfig("train_4x2048", 2048, 4, "train")
+    mesh = GangMesh([cuda] * 4, (1, 4), ("data", "model"))
+    params = init_params(cfg, seed=0, device=cuda)
+    opt = adamw_init(params)
+    pspecs = shd.param_specs(cfg, params, mesh, fsdp=True)
+    p = partition.shard_tree(params, pspecs, mesh)
+    o = partition.shard_tree(opt, shd.opt_specs(pspecs, opt), mesh)
+    b = partition.shard_tree(train.make_batch(cfg, 4, 2048, np.random.default_rng(0), cuda),
+                             shd.batch_specs(cfg, shape, mesh), mesh)
+    step = steps.build_train_step(cfg)
+    p, o, _ = step(p, o, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    p, o, _ = step(p, o, b)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    mem = dryrun.run_combo("mistral_7b", shape, layers=2, mesh=mesh)["memory"]
+    account = 4 * (mem["temp_size_in_bytes"] + mem["output_size_in_bytes"]
+                   - mem["alias_size_in_bytes"])
+    assert abs(account / rise - 1) <= 0.10, (account, rise)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
 def test_partitioned_moe_train_step_on_card_matches_cpu(cuda, shape):
     """The same for a reduced f32 olmoe-like model with 8 experts top-2

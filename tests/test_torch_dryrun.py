@@ -28,6 +28,7 @@ import contextlib
 import dataclasses
 import json
 import math
+from unittest import mock
 
 import jax
 import numpy as np
@@ -46,7 +47,9 @@ from repro_torch.launch import shardings as shd
 from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import init_params, tp
+from repro_torch.sp.common import GangMesh
 from repro_torch.training import optimizer as opt
+from torch.utils._python_dispatch import _disable_current_modes
 
 torch.set_num_threads(1)
 
@@ -120,10 +123,12 @@ def _ref_bytes(jtree, jspecs, jmesh):
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_argument_bytes_match_reference_shards(arch, multi_pod, monkeypatch):
     """The record's per-device argument bytes = the reference's shard
-    shapes summed (the step's own account stubbed out: argument bytes come
-    from the spec trees alone)."""
-    monkeypatch.setattr(dryrun, "step_account", lambda cfg, shape: dict(
-        temp=0, new_out=0, flops=0, bytes=0, replaced=set(), units=1, units_run=[1]))
+    shapes summed (the step's own accounts stubbed out: argument bytes
+    come from the spec trees alone)."""
+    acct = dict(temp=0, new_out=0, flops=0, bytes=0, replaced=set(), units=1, units_run=[1])
+    monkeypatch.setattr(dryrun, "step_account", lambda cfg, shape: acct)
+    monkeypatch.setattr(dryrun, "rank_account", lambda cfg, shape, mesh, **kw: dict(
+        acct, collectives={}))
     jmesh = (AbstractMesh((2, 16, 16), ("pod", "data", "model")) if multi_pod
              else AbstractMesh((16, 16), ("data", "model")))
     jcfg = j_get_config(arch)
@@ -175,12 +180,18 @@ def _analytic_flops(cfg, shape):
     (a, s) for a in ("mistral_7b", "llama3_8b")
     for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")
     if st.supports_shape(get_config(a), INPUT_SHAPES[s])[0]])
-def test_flops_match_the_analytic_count(arch, shape):
+def test_flops_match_the_analytic_count(arch, shape, monkeypatch):
+    """The whole step's FLOPs (`cost_whole_step`; the per-device account,
+    which this does not read, stubbed out)."""
+    monkeypatch.setattr(dryrun, "rank_account", lambda cfg, shape, mesh, **kw: dict(
+        temp=0, new_out=0, flops=0, bytes=0, replaced=set(), collectives={}, units=1,
+        units_run=[1]))
     cfg = get_config(arch)
     rec = dryrun.run_combo(arch, shape)
     want = _analytic_flops(cfg, INPUT_SHAPES[shape])
-    assert abs(rec["cost"]["flops"] / want - 1) <= FLOP_TOL, (rec["cost"]["flops"], want)
-    assert rec["cost"]["bytes accessed"] > 0
+    got = rec["cost_whole_step"]["flops"]
+    assert abs(got / want - 1) <= FLOP_TOL, (got, want)
+    assert rec["cost_whole_step"]["bytes accessed"] > 0
 
 
 #: one reduced f32 config per family, cut to `units` units of depth
@@ -237,6 +248,158 @@ def test_train_account_extrapolates_exactly(arch, switch, monkeypatch):
     want = dryrun._run(cfg, shape)
     for k in ("temp", "new_out", "flops", "bytes"):
         assert got[k] == want[k], k
+
+
+def _meta_mesh(shape):
+    return GangMesh([torch.device("meta")] * math.prod(shape), shape, ("data", "model"))
+
+
+@pytest.mark.parametrize("arch,switch", [pytest.param(a, False, id=a) for a in FAMILIES]
+                         + [pytest.param(a, True, id=f"{a}-factoring-switch")
+                            for a in FAMILIES])
+def test_rank_train_account_extrapolates_exactly(arch, switch, monkeypatch):
+    """One device's account of the partitioned train step on a (2, 2) meta
+    mesh at 5 units, run at 2 and 3 and extrapolated, equals a run at 5:
+    temp, new outputs, FLOPs, bytes and the collective bytes by kind; with
+    `switch` also where the optimizer factors a leaf at 5 units and not at
+    3 (`_factoring_switch`)."""
+    cfg = _reduced(arch, 5)
+    shape = ShapeConfig("t", 128, 2, "train")
+    if switch:
+        _factoring_switch(cfg, monkeypatch)
+    mesh = _meta_mesh((2, 2))
+    got = dryrun.rank_account(cfg, shape, mesh)
+    assert got["units"] == 5 and got["units_run"] == [2, 3]
+    want = dryrun._rank_run(cfg, shape, mesh, None, cfg)
+    for k in ("temp", "new_out", "flops", "bytes", "replaced", "collectives"):
+        assert got[k] == want[k], k
+    assert got["collectives"]["total"] > 0 and got["temp"] > 0
+
+
+def test_serve_temp_does_not_grow_with_the_cache_group():
+    """The meta serve step's per-device peak (temp and new outputs) and
+    FLOPs with the cache's sequence over 8 model ranks are no more than
+    over 2 where each rank holds the same slice of the cache (2 x 256 and
+    8 x 256 positions): rank 0 computes its own decode partial, not every
+    member's of the group (`sp.decode.distributed_decode_local` on a
+    uniform meta group)."""
+    cfg = _reduced("mistral_7b", 2)
+    got = {}
+    for shape, ranks in (((1, 2), 2), ((1, 8), 8)):
+        acct = dryrun.rank_account(cfg, ShapeConfig("d", 256 * ranks, 2, "decode"),
+                                   _meta_mesh(shape))
+        got[ranks] = (acct["temp"] + acct["new_out"], acct["flops"])
+    assert got[8][0] <= got[2][0] and got[8][1] <= got[2][1], got
+
+
+@pytest.mark.parametrize("name,kw", [("all_gather", dict(axis=0)), ("psum", {}),
+                                     ("psum_scatter", dict(scatter_dimension=0)),
+                                     ("all_to_all", dict(split_axis=0, concat_axis=1))])
+def test_meta_collective_is_one_node_over_rank_0(name, kw):
+    """On a meta group (uniform: every member holds rank 0's tensor) a
+    collective under autograd is one node over rank 0's tensor alone, so
+    its backward gives one gradient, not one per member to accumulate; its
+    bytes count once forward and once backward."""
+    from repro_torch.launch import partition
+    from repro_torch.sp.common import collective
+    mesh = _meta_mesh((1, 4))
+    group = partition._meta_group(mesh, ("model",))
+    x = torch.empty(8, 8, device="meta", requires_grad=True)
+    y = collective(group, name, [x] * 4, ("model",), **kw)
+    assert len(y) == 4 and all(t is y[0] for t in y)
+    inputs = [f for f, _ in y[0].grad_fn.next_functions if f is not None]
+    assert len(inputs) == 1
+    y[0].sum().backward()
+    assert x.grad.shape == x.shape
+    forward = {"psum_scatter": 2 * 8 * 4, "all_gather": 32 * 8 * 4}.get(name, 8 * 8 * 4)
+    assert mesh.collective_bytes[0]["total"] == forward + 8 * 8 * 4   # the dual: x's bytes
+
+
+def _head_elsewhere(cfg, shape):
+    """The lm head's FLOPs at every position but each sequence's last: the
+    whole step's prefill (`model.prefill`, as the reference's) projects
+    every position; the partitioned one the last alone."""
+    return 2 * (shape.global_batch * shape.seq_len - shape.global_batch) * cfg.d_model \
+        * cfg.padded_vocab
+
+
+def test_dense_prefill_flops_per_device_sum_to_the_whole_step():
+    """mistral_7b at full width, 2 layers, 2 x 8192 prefill on a (2, 4)
+    meta mesh: its rules replicate no matmul (32 q and 8 KV heads, d_ff and
+    the vocabulary divide over 4 model ranks, every matrix of a layer and
+    the lm head is cut over "model", the batch over 2 data ranks), so the
+    devices' FLOPs sum to the whole step's, but for the head, which the
+    whole step runs at every position (`_head_elsewhere`)."""
+    cfg = get_config("mistral_7b")
+    shape = ShapeConfig("prefill_2x8192", 8192, 2, "prefill")
+    mesh = _meta_mesh((2, 4))
+    specs = shd.param_specs(cfg, st.params_structs(cfg), mesh, fsdp=False)
+    cut = [spec for _, spec in _leaves(specs["layers"][0]) + [((), specs["lm_head"])]
+           if len(spec) == 2]
+    assert len(cut) == 8 and all("model" in tuple(spec) for spec in cut), cut
+    pl = tp.plan(cfg, mesh, batch=2, seq=8192, long_context=False)
+    assert pl.q_heads == pl.kv_heads == ("model",) and pl.batch == ("data",)
+    rec = dryrun.run_combo("mistral_7b", shape, layers=2, mesh=mesh)
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    got = rec["cost"]["flops"] * rec["n_devices"]
+    want = rec["cost_whole_step"]["flops"] - _head_elsewhere(cfg, shape)
+    assert abs(got / want - 1) <= FLOP_TOL, (got, want)
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 2)])
+def test_mamba2_prefill_flops_count_the_repeated_work(mesh_shape):
+    """mamba2_130m at full width, 2 layers, 2 x 2048 prefill: every model
+    rank runs in_proj, the conv, the gate and out_proj over the whole
+    gathered sequence of its batch rows, and the scan's C·Bᵀ of every chunk
+    with its heads (`tp._mamba`), so the devices' FLOPs exceed the whole
+    step's by those of in_proj, out_proj and C·Bᵀ on the other m - 1 model
+    ranks (the conv and the gate are elementwise: the count, matmuls, has
+    none of them), less the head the whole step runs at every position."""
+    cfg = get_config("mamba2_130m")
+    shape = ShapeConfig("prefill_2x2048", 2048, 2, "prefill")
+    mesh = _meta_mesh(mesh_shape)
+    rec = dryrun.run_combo("mamba2_130m", shape, layers=2, mesh=mesh)
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    T, d, di, ns, nh = 2 * 2048, cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    repeated = cfg.num_layers * 2 * T * (d * (2 * di + 2 * ns + nh) + di * d
+                                         + cfg.ssm_chunk * ns)
+    got = rec["cost"]["flops"] * rec["n_devices"] - rec["cost_whole_step"]["flops"]
+    want = (mesh_shape[1] - 1) * repeated - _head_elsewhere(cfg, shape)
+    assert abs(got / want - 1) <= FLOP_TOL, (got, want)
+
+
+def _uncounted(obj, name):
+    """Within: ``obj.<name>`` runs outside the account (its results never
+    count): the planted fault of the card's check, rank 0's FSDP-gathered
+    weights (`tp._weight`) left out."""
+    fn = getattr(obj, name)
+
+    def uncounted(*a, **kw):
+        with _disable_current_modes():
+            return fn(*a, **kw)
+    return mock.patch.object(obj, name, uncounted)
+
+
+def test_fsdp_train_temp_holds_the_gathered_layer():
+    """The reduced mistral_7b's train step on a (4, 1) meta mesh (FSDP
+    alone): rank 0's temp is at least one layer's whole weights (the
+    gathered layer, whose shards alone are its arguments), and leaving
+    the all-gathered weights out of the account lowers it by at least
+    those alive at its peak, in a layer's backward after w_down's product:
+    the layer's matrices (`tp._weight` gathers them; the norms' weights
+    are whole) but w_down."""
+    cfg = _reduced("mistral_7b", 2)
+    shape = ShapeConfig("t", 128, 4, "train")
+    mesh = _meta_mesh((4, 1))
+    layer = st.params_structs(cfg)["layers"][0]
+    nbytes = {path: x.numel() * x.element_size() for path, x in _leaves(layer)}
+    gathered = sum(n for path, n in nbytes.items() if path[-1] not in ("ln1", "ln2"))
+    acct = dryrun.rank_account(cfg, shape, mesh)
+    with _uncounted(tp, "_weight"):
+        fault = dryrun.rank_account(cfg, shape, mesh)
+    assert acct["temp"] >= sum(nbytes.values())
+    assert acct["temp"] - fault["temp"] >= gathered - nbytes[("mlp", "w_down")]
+    assert fault["collectives"] == acct["collectives"]
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -341,7 +504,11 @@ def test_matrix_decode_combo_runs_on_both_meshes(arch):
         assert rec["mesh"] == ("pod2x16x16" if mp else "pod16x16")
         mem = rec["memory"]
         assert mem["fits"] == (mem["per_device_total"] <= 80e9)
-        assert mem["temp_size_in_bytes"] > 0 and "estimate" in mem["temp_scope"]
+        assert mem["temp_size_in_bytes"] > 0 and mem["temp_whole_step_over_n"] > 0
+        assert f"on {n} meta ranks" in mem["temp_scope"]
+        assert ("one-hot" in mem["temp_scope"]) == (cfg.family == "moe")
+        assert rec["cost"]["scope"] == "one device's program, unfused"
+        assert rec["cost_whole_step"]["flops"] > rec["cost"]["flops"] > 0
         train = dryrun.run_combo(arch, TRAIN_SMALL, multi_pod=mp,
                                  layers=cut(2).num_layers)
         assert train["account"]["units"] == 2

@@ -36,7 +36,11 @@ tests/test_torch_cuda.py, which imports no JAX.
 prints the reference's collective bytes beside the port's for the reduced
 dense prefill and serve step and the reduced moe (8 experts), ssm (16
 heads), hybrid (two segments) and audio (32 frames and a BOS token)
-prefills on (2, 2) and (1, 4).
+prefills on (2, 2) and (1, 4), and for the dense steps the reference's
+``memory_analysis().temp_size_in_bytes`` and ``cost_analysis()["flops"]``
+(as parsed, and scaled by the layer loop's trip count as the reference's
+roofline scales it) beside the dry run's per-device temp and FLOPs
+(`dryrun.rank_account`).
 """
 import dataclasses
 import json
@@ -567,6 +571,15 @@ def _trip_scaled_bytes(hlo: str) -> dict:
     return out
 
 
+def _analysis(compiled) -> dict:
+    """One device's temp bytes and FLOPs of a compiled SPMD step, as the
+    reference's dry run reads them (``memory_analysis``, ``cost_analysis``)."""
+    cost = compiled.cost_analysis()
+    cost = cost[0] if isinstance(cost, (list, tuple)) else cost
+    return {"temp": int(compiled.memory_analysis().temp_size_in_bytes),
+            "flops": float(cost["flops"])}
+
+
 def _jax_outputs(path, more=False):
     """psum_scatter of jax.lax on a (4, 2) mesh, and the reference's
     collective bytes of its partitioned dense and audio prefill and serve
@@ -612,15 +625,18 @@ def _jax_outputs(path, more=False):
             with m:
                 f_pre = jax.jit(jst.build_prefill_step(jcfg, pre, mesh=m),
                                 in_shardings=(p_sh, b_sh, c_sh), out_shardings=(None, c_sh))
-                hlo = {"prefill": f_pre.lower(params, batch, cache).compile().as_text()}
+                compiled = {"prefill": f_pre.lower(params, batch, cache).compile()}
                 if name in SERVE_BYTES:
                     f_dec = jax.jit(jst.build_serve_step(jcfg, dec, mesh=m),
                                     in_shardings=(p_sh, c_sh, t_sh), out_shardings=(None, c_sh))
-                    hlo["serve"] = f_dec.lower(
-                        params, cache, jax.ShapeDtypeStruct((B,), jnp.int32)).compile().as_text()
-                for step, text in hlo.items():
+                    compiled["serve"] = f_dec.lower(
+                        params, cache, jax.ShapeDtypeStruct((B,), jnp.int32)).compile()
+                for step, c in compiled.items():
+                    text = c.as_text()
                     ref[f"{step}_{tag}"] = collective_bytes_from_hlo(text)
                     ref[f"{step}_{tag}_scaled"] = _trip_scaled_bytes(text)
+                    if name == "dense":
+                        ref[f"{step}_{tag}_analysis"] = _analysis(c)
     out["reference_bytes"] = np.frombuffer(json.dumps(ref).encode(), np.uint8)
     np.savez(path, x=x, **out)
 
@@ -706,6 +722,18 @@ def main(argv):
                                       "reference": ref[f"{step}_{tag}"],
                                       "reference_trip_scaled": ref[f"{step}_{tag}_scaled"],
                                       "port": port[step]}))
+                if name != "dense":
+                    continue
+                for step, acct in (("prefill", dryrun.rank_account(
+                        cfg, pre, mesh, max_len=CONFIGS[name][2])),
+                                   ("serve", dryrun.rank_account(cfg, dec, mesh))):
+                    got = ref[f"{step}_{tag}_analysis"]
+                    print(json.dumps({"config": name, "mesh": tag, "step": step,
+                                      "reference_temp": got["temp"], "port_temp": acct["temp"],
+                                      "reference_flops": got["flops"],
+                                      "reference_flops_trip_scaled": got["flops"]
+                                      * cfg.num_layers,
+                                      "port_flops": acct["flops"]}))
         return 0
     _jax_outputs(argv[0], more="--more" in argv)
     return 0

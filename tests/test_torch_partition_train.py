@@ -40,9 +40,14 @@ tests/test_torch_cuda.py, which imports no JAX.
     PYTHONPATH=src python tests/test_torch_partition_train.py --bytes
 
 prints the reference's collective bytes of its partitioned train step
-beside the port's for the reduced dense model on (2, 2).
+beside the port's for the reduced dense model on (2, 2), and on (2, 2) and
+(1, 4) its ``memory_analysis().temp_size_in_bytes`` and
+``cost_analysis()["flops"]`` (as parsed, and scaled by the layer loop's
+trip count) beside the dry run's per-device temp and FLOPs
+(`dryrun.rank_account`).
 """
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -355,6 +360,32 @@ def test_every_storage_written_once(models, monkeypatch):
     np.testing.assert_allclose(float(info["loss"]), whole_infos[0][0], rtol=TOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_train_step_leaves_no_tensor_in_a_reference_cycle(shape, models):
+    """After a partitioned train step no tensor is held by a reference
+    cycle: each storage goes when its last reference does, not when the
+    garbage collector next runs (`optimizer._zip`'s walk once closed over
+    itself and its output list, which kept every rank's gradients alive
+    into the next step and moved the card's rise in memory over it)."""
+    _, _, cfg, params = models["dense"]
+    p, s, cut = _shard(cfg, params, _mesh(shape))
+    step = steps.build_train_step(cfg)
+    b = cut(_batches(cfg)[0])
+    p, s, _ = step(p, s, b)
+    gc.collect()
+    gc.disable()
+    try:
+        p, s, _ = step(p, s, b)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        held = [x for x in gc.garbage if torch.is_tensor(x)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert not held, [tuple(x.shape) for x in held]
+
+
 @pytest.mark.parametrize("remat", [True, False])
 def test_grad_mode_reaches_the_rank_threads(remat, models, monkeypatch):
     """With remat, every rank's layer runs first without grad (the
@@ -466,11 +497,22 @@ def test_launcher_shards_on_a_host_mesh(models, monkeypatch):
 
 
 # ---- the reference's partitioned train step ------------------------------------
-def _jax_outputs(path):
+def _analysis(compiled) -> dict:
+    """One device's temp bytes and FLOPs of a compiled SPMD step, as the
+    reference's dry run reads them (``memory_analysis``, ``cost_analysis``)."""
+    cost = compiled.cost_analysis()
+    cost = cost[0] if isinstance(cost, (list, tuple)) else cost
+    return {"temp": int(compiled.memory_analysis().temp_size_in_bytes),
+            "flops": float(cost["flops"])}
+
+
+def _jax_outputs(path, more=False):
     """The reference's train step jitted under the dry run's fsdp in- and
     out-shardings on a (2, 2) mesh of four XLA devices: its (loss,
-    grad_norm) on the reduced dense model's first batch, and its
-    collective bytes from the compiled HLO; needs 4 XLA devices."""
+    grad_norm) on the reduced dense model's first batch, its collective
+    bytes from the compiled HLO, and one device's temp bytes and FLOPs
+    (`_analysis`), with `more` also on (1, 4); needs
+    4 XLA devices."""
     from jax.sharding import Mesh, NamedSharding
 
     from repro.launch import shardings as jshd
@@ -489,19 +531,31 @@ def _jax_outputs(path):
     with m:
         fn = jax.jit(jst.build_train_step(jcfg, mesh=m, remat=True),
                      in_shardings=(p_sh, o_sh, b_sh), out_shardings=(p_sh, o_sh, None))
-        hlo = fn.lower(params, state, batch).compile().as_text()
+        compiled = fn.lower(params, state, batch).compile()
         _, _, info = fn(jax.device_put(params, p_sh), jax.device_put(state, o_sh),
                         jax.device_put(batch, b_sh))
     ref = {"loss": float(info["loss"]), "grad_norm": float(info["grad_norm"]),
-           "bytes": collective_bytes_from_hlo(hlo)}
+           "bytes": collective_bytes_from_hlo(compiled.as_text()),
+           "analysis": {"2x2": _analysis(compiled)}}
+    if more:
+        m = Mesh(np.array(jax.devices()[:4]).reshape(1, 4), ("data", "model"))
+        pspecs = jshd.param_specs(jcfg, params, m, fsdp=True)
+        shardings = (jshd.to_shardings(m, pspecs),
+                     jshd.to_shardings(m, jshd.opt_specs(pspecs, state)),
+                     {k: NamedSharding(m, v) for k, v in
+                      jshd.batch_specs(jcfg, _train_shape(), m).items()})
+        with m:
+            fn = jax.jit(jst.build_train_step(jcfg, mesh=m, remat=True),
+                         in_shardings=shardings, out_shardings=shardings[:2] + (None,))
+            ref["analysis"]["1x4"] = _analysis(fn.lower(params, state, batch).compile())
     np.savez(path, reference=np.frombuffer(json.dumps(ref).encode(), np.uint8))
 
 
-def _run_reference(path):
+def _run_reference(path, *more):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=str(ROOT / "src"))
-    p = subprocess.run([sys.executable, __file__, str(path)], env=env,
+    p = subprocess.run([sys.executable, __file__, str(path), *more], env=env,
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-2000:]
     return json.loads(np.load(path)["reference"].tobytes())
@@ -528,13 +582,20 @@ def main(argv):
     if argv[:1] == ["--bytes"]:
         path = ROOT / "build" / "partition_train_reference.npz"
         path.parent.mkdir(exist_ok=True)
-        ref = _run_reference(path)
+        ref = _run_reference(path, "--more")
         _, cfg = _configs("dense")
-        port = dryrun.collective_bytes(cfg, _train_shape(), _mesh((2, 2)))
+        acct = {tag: dryrun.rank_account(cfg, _train_shape(), _mesh(shape))
+                for tag, shape in (("2x2", (2, 2)), ("1x4", (1, 4)))}
         print(json.dumps({"mesh": "2x2", "step": "train", "reference": ref["bytes"],
-                          "port": port}))
+                          "port": acct["2x2"]["collectives"]}))
+        for tag, got in ref["analysis"].items():
+            print(json.dumps({"mesh": tag, "step": "train", "reference_temp": got["temp"],
+                              "port_temp": acct[tag]["temp"],
+                              "reference_flops": got["flops"],
+                              "reference_flops_trip_scaled": got["flops"] * cfg.num_layers,
+                              "port_flops": acct[tag]["flops"]}))
         return 0
-    _jax_outputs(argv[0])
+    _jax_outputs(argv[0], more="--more" in argv)
     return 0
 
 
