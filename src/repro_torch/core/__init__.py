@@ -15,7 +15,7 @@ from repro_torch.core.schedulers import (POLICY_NAMES, BasePolicy, FIFOPolicy,
                                    PredSJFPolicy, PriorityPolicy,
                                    ReservationPolicy, TailAwarePolicy,
                                    make_policy)
-from repro_torch.core.simulator import EventHeap, Simulator, Work, format_profile
+from repro_torch.core.simulator import EventHeap, Simulator, Work
 from repro_torch.core.trace import (TraceConfig, generate_trace, load_trace_csv,
                               save_trace_csv, trace_stats)
 from repro_torch.core.workload import (calibrate_short_capacity, experiment_trace,

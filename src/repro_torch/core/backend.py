@@ -72,6 +72,8 @@ backend (the default), then the same decisions on real engines::
 """
 from __future__ import annotations
 
+from repro_torch.core.spans import Tracer
+
 
 class ExecutionBackend:
     """Protocol base.  A backend owns the *execution* semantics of Work;
@@ -80,6 +82,11 @@ class ExecutionBackend:
     #: True if the driver must call `finish(t, work)` right before the
     #: policy's on_done (backends that execute lazily at completion time).
     needs_finish = False
+
+    def __init__(self):
+        #: spans and counters of everything run through this backend; the
+        #: Simulator times its policy decisions on it too (core/spans.py)
+        self.tracer = Tracer()
 
     def bind(self, sim) -> None:
         self.sim = sim

@@ -24,10 +24,13 @@ The event loop is built for 100 K+-request traces:
 * **Batched same-timestamp dispatch**: all events at one timestamp are
   applied before a single `policy.dispatch()` pass, so simultaneous
   completions trigger one placement scan, not one per event.
-* **Profile counters**: `Simulator.profile()` reports events, pushes,
-  cancels, dispatch passes, peak heap size, wall/policy time and events/sec
-  (surfaced by `benchmarks/simulator_scale.py --profile` and
-  `examples/trace_replay.py --profile`).
+* **Policy time**: each event batch's policy callbacks and dispatch pass
+  are the span ``sched.decide`` of the backend's `Tracer` (core/spans.py),
+  timed by the loop itself and added once (`Tracer.add`: a few integer
+  operations per batch);
+  the work a backend runs inside them is in spans of its own, so
+  `Simulator.sched_time` is ``sched.decide``'s self time, the policy
+  alone, whichever backend executes.
 """
 from __future__ import annotations
 
@@ -253,6 +256,8 @@ class Simulator:
             self.last_arrival = requests[-1].arrival if requests else 0.0
         self.backend.bind(self)
         self.policy.bind(self.backend)
+        tracer = self.backend.tracer
+        decide_ns = decide_self_ns = n_batches = 0
         if self.fleet is not None:
             self.fleet.bind(self)
         fleet = self.fleet
@@ -296,7 +301,8 @@ class Simulator:
             self.now = t
             if arrivals and t > self.last_arrival:
                 self.last_arrival = t       # generator input: track inline
-            t0 = _time.perf_counter()
+            t0 = _time.perf_counter_ns()
+            inner0 = tracer.inner_ns()
             n_policy_events = len(arrivals)
             self.n_stream_arrivals += n_policy_events
             self.n_events += n_policy_events
@@ -347,45 +353,15 @@ class Simulator:
                     fleet_step(t)
                 dispatch(t)
                 self.n_dispatches += 1
-            self.sched_time += _time.perf_counter() - t0
+            ns = _time.perf_counter_ns() - t0
+            decide_ns += ns
+            # the backend's work inside the batch is in spans of its own:
+            # the policy's time leaves them out
+            decide_self_ns += ns - (tracer.inner_ns() - inner0)
+            n_batches += 1
+        # a ``sched.decide`` span per batch, added to the tracer once
+        tracer.add("sched.decide", decide_ns, decide_self_ns, n=n_batches)
+        self.sched_time += decide_self_ns * 1e-9
         self.policy.finalize(self.now)
         self.run_time = _time.perf_counter() - wall0
         return self.policy.summary(self.now)
-
-    # ------------------------------------------------------------------
-    def profile(self) -> Dict:
-        """Event-loop counter report (cheap ints, always collected)."""
-        index = getattr(self.policy, "index", None)
-        return {
-            "events": self.n_events,
-            "pushes": self.heap.n_pushed + self.n_stream_arrivals,
-            "cancels": self.heap.n_canceled,
-            "dispatch_passes": self.n_dispatches,
-            # dirty-dispatch elision: batches whose dispatch pass was skipped
-            # because nothing policy-visible changed (pure backend quanta) or
-            # the policy proved itself idle (needs_dispatch False)
-            "dispatch_elided_quantum": self.n_elided_quantum,
-            "dispatch_elided_idle": self.n_elided_idle,
-            "events_per_dispatch": self.n_events / max(self.n_dispatches, 1),
-            "peak_heap_slots": self.heap.peak_slots,
-            # cluster-index effectiveness: set-backed lookups vs O(R) rescans
-            "index_queries": getattr(index, "n_queries", 0),
-            "index_rescans": getattr(index, "n_rescans", 0),
-            "wall_s": self.run_time,
-            "policy_s": self.sched_time,
-            "loop_s": self.run_time - self.sched_time,
-            "events_per_sec": self.n_events / max(self.run_time, 1e-9),
-        }
-
-
-def format_profile(p: Dict) -> str:
-    return ("events={events} pushes={pushes} cancels={cancels} "
-            "dispatch_passes={dispatch_passes} "
-            "elided(quantum/idle)={dispatch_elided_quantum}/"
-            "{dispatch_elided_idle} "
-            "events/dispatch={events_per_dispatch:.2f} "
-            "peak_heap_slots={peak_heap_slots} "
-            "index(queries/rescans)={index_queries}/{index_rescans} "
-            "wall={wall_s:.2f}s "
-            "(policy {policy_s:.2f}s / loop {loop_s:.2f}s) "
-            "events/sec={events_per_sec:,.0f}".format(**p))

@@ -96,6 +96,7 @@ class EngineBackend(ExecutionBackend):
                  sp_devices: Optional[Sequence] = None,
                  hw: HardwareSpec = H100_SXM):
         assert clock in ("measured", "analytic"), clock
+        super().__init__()
         self.device = resolve_device(device)
         #: the devices a gang's ranks run on (several ranks may share one);
         #: by default every visible card on CUDA, one CPU device on the CPU
@@ -136,7 +137,10 @@ class EngineBackend(ExecutionBackend):
         self._pdone: Dict[int, int] = {}
         self._gang_runners: Dict[Tuple[int, str], GangSPRunner] = {}
         self.generated: Dict[int, List[int]] = {}         # request rid -> tokens
-        self.stats = Counter()
+        #: counters and span totals (`tracer.stats`, core/spans.py): a span
+        #: ``name`` keeps ``name:n``, ``name:ns``, ``name:self_ns`` and
+        #: ``name:wait_ns``
+        self.stats = self.tracer.stats
         self.measured_s = 0.0
         #: measured seconds spent in decode iterations (decode tokens/s)
         self.decode_s = 0.0
@@ -159,7 +163,7 @@ class EngineBackend(ExecutionBackend):
         self._parked_decode.clear()
         self._pdone.clear()
         self.generated.clear()
-        self.stats = Counter()
+        self.tracer.reset()
         self.measured_s = 0.0
         self.decode_s = 0.0
 
@@ -217,7 +221,8 @@ class EngineBackend(ExecutionBackend):
         if eng is None:
             eng = ReplicaEngine(self.cfg, self.params, max_slots=self.max_slots,
                                 max_len=self.max_len,
-                                layers_per_quantum=self.lpq, device=self.device)
+                                layers_per_quantum=self.lpq, device=self.device,
+                                tracer=self.tracer)
             self._engines[rid] = eng
         return eng
 
@@ -273,19 +278,30 @@ class EngineBackend(ExecutionBackend):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-    def _timed(self, fn, *args):
+    def _timed(self, name: str, fn, *args):
         """Run fn and charge its wall time, synchronised with the card so the
-        clock reads finished work, not enqueued work."""
-        t0 = time.perf_counter()
-        out = fn(*args)
-        self._sync()
-        dt = time.perf_counter() - t0
+        clock reads finished work, not enqueued work.  `name` is its span;
+        the synchronise is the ``wait`` span ``<name>.sync``."""
+        tr = self.tracer
+        with tr.span(name):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            with tr.span(name + ".sync", wait=True):
+                self._sync()
+            dt = time.perf_counter() - t0
         self.measured_s += dt
         return out, dt
 
+    def _first_token(self, logits: torch.Tensor) -> int:
+        """A prefill's first token: a readback, after the timed call's
+        synchronise, so its ``wait`` span reads ~0."""
+        with self.tracer.span("backend.first_token", wait=True):
+            return int(logits[0].argmax())
+
     def _decode_iter(self, eng: ReplicaEngine, active: Dict[int, int]):
         """One timed decode iteration; counts its tokens and seconds."""
-        out, d = self._timed(eng.decode_iteration, active)
+        out, d = self._timed("backend.decode_iteration",
+                             eng.decode_iteration, active)
         self.decode_s += d
         self.stats["decode_iters"] += 1
         self.stats["decode_tokens"] += len(out)
@@ -304,7 +320,7 @@ class EngineBackend(ExecutionBackend):
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_hit_tokens"] += hit.n_tokens
         st, _ = self._timed(
-            lambda: eng.start_prefill(
+            "backend.start_prefill", lambda: eng.start_prefill(
                 req.rid, torch.as_tensor(prompt[None], dtype=torch.long),
                 prefix_k=pk, prefix_v=pv, host_tokens=host))
         return st
@@ -314,7 +330,8 @@ class EngineBackend(ExecutionBackend):
         dt = 0.0
         while st.layer < target_layer:
             lo = st.layer
-            (_, _done), d = self._timed(eng.prefill_quantum, st)
+            (_, _done), d = self._timed("backend.prefill_quantum",
+                                        eng.prefill_quantum, st)
             dt += d
             self.stats["prefill_quanta"] += 1
             # degree-1 timings feed the SP calibration only for LONG prefills
@@ -329,9 +346,10 @@ class EngineBackend(ExecutionBackend):
             st = self._start_prefill(eng, req)
         dt = self._prefill_quanta(eng, st, self.cfg.num_layers,
                                   record=req.is_long)
-        logits, d = self._timed(eng.prefill_logits, st)
+        logits, d = self._timed("backend.prefill_logits",
+                                eng.prefill_logits, st)
         dt += d
-        self.generated[req.rid] = [int(logits[0].argmax())]
+        self.generated[req.rid] = [self._first_token(logits)]
         self._kv[req.rid] = st
         if req.prefix_group is not None and st.host_tokens is not None:
             # park the full prompt KV in THIS engine's prefix cache so the
@@ -364,7 +382,8 @@ class EngineBackend(ExecutionBackend):
         # planner's four-combination search (§5.3), not the scale prompt
         plan = plan_for_gang(self.cfg, req.input_len, mesh, self.hw)
         runner = self._runner_for(degree, plan.inner_impl)
-        st, _ = self._timed(runner.start, req.rid, self._prompt(req), plan)
+        st, _ = self._timed("backend.gang_start", runner.start, req.rid,
+                            self._prompt(req), plan)
         self.stats["gang_prefills"] += 1
         return st
 
@@ -372,7 +391,8 @@ class EngineBackend(ExecutionBackend):
         """One SP quantum: lpq x degree layers at equal per-device compute."""
         runner = self._runner_for(st.degree, st.plan.inner_impl)
         lo = st.layer
-        (_, done), d = self._timed(runner.quantum, st, self.lpq * st.degree)
+        (_, done), d = self._timed("backend.gang_quantum", runner.quantum, st,
+                                   self.lpq * st.degree)
         self.stats["sp_prefill_quanta"] += 1
         if st.layer > lo:
             self.sp_timings.setdefault(st.degree, []).append(
@@ -390,9 +410,9 @@ class EngineBackend(ExecutionBackend):
         while st.layer < self.cfg.num_layers:
             _, d = self._gang_quantum(st)
             dt += d
-        logits, d = self._timed(runner.logits, st)
+        logits, d = self._timed("backend.gang_logits", runner.logits, st)
         dt += d
-        self.generated[req.rid] = [int(logits[0].argmax())]
+        self.generated[req.rid] = [self._first_token(logits)]
         k, v = runner.gather_kv(st, self.device)
         del self._gangs[req.rid]
         home = work.replica_ids[0]
@@ -579,7 +599,14 @@ class EngineBackend(ExecutionBackend):
     # ------------------------------------------------------------------
     # ExecutionBackend interface
     # ------------------------------------------------------------------
+    # Each entry point that runs engine work is a span of its own (a Work's
+    # named by its kind), so the simulator's ``sched.decide`` self time
+    # leaves the engines out.
     def submit(self, work: Work) -> None:
+        with self.tracer.span("backend.submit." + work.kind):
+            self._submit(work)
+
+    def _submit(self, work: Work) -> None:
         t = work.start
         if work.kind in _EAGER_KINDS:
             measured = self._execute(work)
@@ -613,7 +640,9 @@ class EngineBackend(ExecutionBackend):
         """/Dis colocated shorts finish with decode modelled inline by the
         policy; run that decode for real so generations complete and the
         parked KV is released (off the virtual clock)."""
-        self._decode_batch(self._engine(work.replica_ids[0]), work.requests)
+        with self.tracer.span("backend.decode_inline"):
+            self._decode_batch(self._engine(work.replica_ids[0]),
+                               work.requests)
 
     def role_change(self, t: float, rid: int, old_role: str,
                     new_role: str) -> None:
@@ -642,6 +671,10 @@ class EngineBackend(ExecutionBackend):
         eng = self._engines.get(rid)
         if eng is None:
             return {}
+        with self.tracer.span("backend.reclaim"):
+            return self._reclaim(rid, eng)
+
+    def _reclaim(self, rid: int, eng: ReplicaEngine) -> Dict[str, int]:
         parked = blocks = 0
         # live long-decode sessions homed here: park mid-generation
         for req_rid in [r for r, s in self._dsessions.items()
@@ -712,6 +745,10 @@ class EngineBackend(ExecutionBackend):
     # ---- measured clock: quantum events ------------------------------
     def on_event(self, t: float, kind: str, work: Work) -> None:
         assert kind == "ENGINE_STEP", kind
+        with self.tracer.span("backend.step." + work.kind):
+            self._step(t, work)
+
+    def _step(self, t: float, work: Work) -> None:
         req = work.requests[0]
         eng = self._engine(work.replica_ids[0])
         if work.kind == "long_prefill":
@@ -733,7 +770,8 @@ class EngineBackend(ExecutionBackend):
                 return
             if st.layer < self.cfg.num_layers:
                 lo = st.layer
-                (_, done), d = self._timed(eng.prefill_quantum, st)
+                (_, done), d = self._timed("backend.prefill_quantum",
+                                           eng.prefill_quantum, st)
                 self.stats["prefill_quanta"] += 1
                 if st.layer > lo:          # a long on the single-replica path
                     self.sp_timings.setdefault(1, []).append(
@@ -743,8 +781,9 @@ class EngineBackend(ExecutionBackend):
             if not done:
                 self.sim.push(t + d, "ENGINE_STEP", work)
                 return
-            logits, d2 = self._timed(eng.prefill_logits, st)
-            self.generated[req.rid] = [int(logits[0].argmax())]
+            logits, d2 = self._timed("backend.prefill_logits",
+                                     eng.prefill_logits, st)
+            self.generated[req.rid] = [self._first_token(logits)]
             self._kv[req.rid] = self._psessions.pop(req.rid)
             work.duration = t + d + d2 - work.start
             self.sim.push(t + d + d2, "DONE", work)
@@ -769,6 +808,10 @@ class EngineBackend(ExecutionBackend):
 
     # ---- analytic clock: lazy completion ------------------------------
     def finish(self, t: float, work: Work) -> None:
+        with self.tracer.span("backend.finish"):
+            self._finish(work)
+
+    def _finish(self, work: Work) -> None:
         if work.kind == "long_prefill":
             req = work.requests[0]
             if req.rid in self._gangs:

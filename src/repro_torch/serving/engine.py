@@ -15,6 +15,15 @@ KV is appended back to the pool block-granularly.
 Attention runs through ``ops.attention`` / ``ops.decode_attention`` with
 ``impl="auto"``: the hand CUDA kernels on the card (the reference hard-codes
 its plain ``"xla"`` path here), their plain versions on the CPU.
+
+Spans (core/spans.py): each of `start_prefill`, `prefill_quantum`,
+`prefill_logits`, `admit`, `evict` and `decode_iteration` is a span
+``engine.<method>``, its parts ``engine.<method>.<part>``, and each copy
+that waits for the card a ``wait`` span.  Only these go on a profiler's
+timeline (ranges carrying request ids and shapes, which the tracer's hook
+`_profiler_range` opens while a profiler is active), and every one is
+named ``engine.``: a device trace reader counts device events of any other
+name as work.
 """
 from __future__ import annotations
 
@@ -24,11 +33,28 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import Tracer
 from repro_torch.hardware import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import model as mdl
 from repro_torch.serving.kvcache import PagedKVCache, PrefixHit
+
+
+def _profiler_range(name: str, args):
+    """The engine tracer's `ranges` hook: while a `torch.profiler` session is
+    active, a range `name` whose trace args are what `args()` returns (kept
+    where the profiler records inputs, ``record_shapes=True``); else None,
+    with `args` not called.  The public `record_function` drops its args
+    string from the trace, so the range comes from the profiler's own fast
+    binding where it exists."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    if fast is None:
+        return torch.profiler.record_function(name)
+    attrs = args() if args is not None else {}
+    return fast(name, (), {k: str(v) for k, v in attrs.items()})
 
 
 class SlotsFull(RuntimeError):
@@ -81,12 +107,14 @@ class ReplicaEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
                  max_len: int = 512, layers_per_quantum: int = 2,
                  block_size: int = 16, n_blocks: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", tracer: Optional[Tracer] = None):
         if cfg.family != "dense":
             raise NotImplementedError("the engine serves the dense family; the "
                                       "others run through the model API "
                                       "(launch/quickstart.py)")
         self.device = resolve_device(device)
+        self.tracer = tracer if tracer is not None else Tracer()
+        self.tracer.ranges = _profiler_range
         self.cfg = cfg
         self.params = params
         self.max_slots = max_slots
@@ -103,7 +131,7 @@ class ReplicaEngine:
         self.kvpool = PagedKVCache.create(
             nl, n_blocks if n_blocks is not None
             else (max_slots + 1) * self.blocks_per_seq, KV, block_size,
-            hd, self.dtype, device=self.device)
+            hd, self.dtype, device=self.device, tracer=self.tracer)
         self.slot_rid: List[Optional[int]] = [None] * max_slots
         self._view: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
@@ -169,35 +197,46 @@ class ReplicaEngine:
         """Begin a (preemptible) prefill of tokens (1, S).  With
         `prefix_k`/`prefix_v` ((L, KV, P, hd), e.g. from
         `lookup_cached_prefix`) only the suffix beyond P is computed."""
-        tokens = tokens.to(self.device)
-        if prefix_k is not None:
-            P = prefix_k.shape[2]
+        tr = self.tracer
+        P = 0 if prefix_k is None else prefix_k.shape[2]
+        with tr.span("engine.start_prefill", record=True, args=lambda: dict(
+                rid=rid, S=tokens.shape[1], P=P)):
+            # from pageable host memory: waits for the stream to drain
+            with tr.span("engine.start_prefill.upload", wait=True,
+                         record=True):
+                tokens = tokens.to(self.device)
             return PrefillState(rid=rid, tokens=tokens,
                                 x=self._embed(tokens[:, P:]), layer=0,
                                 prefix_k=prefix_k, prefix_v=prefix_v,
                                 host_tokens=host_tokens)
-        return PrefillState(rid=rid, tokens=tokens, x=self._embed(tokens),
-                            layer=0, host_tokens=host_tokens)
 
     def prefill_quantum(self, st: PrefillState) -> Tuple[PrefillState, bool]:
         """Run up to layers_per_quantum layers; returns (state, done)."""
         lo = st.layer
         hi = min(lo + self.lpq, self.cfg.num_layers)
-        if st.prefix_k is not None:
-            x, kvs = self._suffix_slice(st.x, st.prefix_k[lo:hi],
-                                        st.prefix_v[lo:hi], lo, hi)
-        else:
-            x, kvs = self._layer_slice(st.x, lo, hi)
-        st.x = x
-        for kv in kvs:
-            st.kv_k.append(kv.k)
-            st.kv_v.append(kv.v)
-        st.layer = hi
-        return st, hi == self.cfg.num_layers
+        tr = self.tracer
+        with tr.span("engine.prefill_quantum", record=True, args=lambda: dict(
+                rid=st.rid, S=st.x.shape[1], P=st.prefix_len,
+                layers=f"{lo}-{hi}")):
+            with tr.span("engine.prefill_quantum.layers", record=True):
+                if st.prefix_k is not None:
+                    x, kvs = self._suffix_slice(st.x, st.prefix_k[lo:hi],
+                                                st.prefix_v[lo:hi], lo, hi)
+                else:
+                    x, kvs = self._layer_slice(st.x, lo, hi)
+            st.x = x
+            for kv in kvs:
+                st.kv_k.append(kv.k)
+                st.kv_v.append(kv.v)
+            st.layer = hi
+            tr.count("prefill_layers", hi - lo)
+            return st, hi == self.cfg.num_layers
 
     def prefill_logits(self, st: PrefillState) -> torch.Tensor:
         assert st.layer == self.cfg.num_layers
-        return self._finalize(st.x)
+        with self.tracer.span("engine.prefill_logits", record=True,
+                              args=lambda: dict(rid=st.rid)):
+            return self._finalize(st.x)
 
     # ---- resident KV (paged pool) ------------------------------------------
     def resident(self, rid: int) -> bool:
@@ -289,34 +328,40 @@ class ReplicaEngine:
         """Install a finished prefill's KV into the pool and bind a decode
         slot (the §5.2 KV migration).  Raises `SlotsFull` when every slot is
         occupied OR the pool lacks the block budget."""
-        free = self.free_slots()
-        if not free:
-            raise SlotsFull(
-                f"engine has no free decode slot for request {rid} "
-                f"({self.max_slots} occupied)")
+        tr = self.tracer
         S = st.tokens.shape[1]
-        if S > self.max_len:
-            raise ValueError("sequence longer than engine max_len")
-        if (len(self.kvpool.free) + len(self.kvpool.cached)
-                < self.blocks_per_seq):
-            raise SlotsFull(
-                f"KV pool cannot reserve a decode lane for request {rid}: "
-                f"{len(self.kvpool.free)} of {self.kvpool.n_blocks} "
-                f"blocks free, {self.blocks_per_seq} needed")
-        k, v = st.full_kv()
-        self.kvpool.admit(rid, k.to(self.device), v.to(self.device),
-                          tokens=st.host_tokens)
-        self.kvpool.reserve(rid, self.max_len)
-        slot = free[0]
-        self.slot_rid[slot] = rid
-        self._invalidate_view()
-        return slot
+        with tr.span("engine.admit", record=True,
+                     args=lambda: dict(rid=rid, S=S)):
+            free = self.free_slots()
+            if not free:
+                raise SlotsFull(
+                    f"engine has no free decode slot for request {rid} "
+                    f"({self.max_slots} occupied)")
+            if S > self.max_len:
+                raise ValueError("sequence longer than engine max_len")
+            if (len(self.kvpool.free) + len(self.kvpool.cached)
+                    < self.blocks_per_seq):
+                raise SlotsFull(
+                    f"KV pool cannot reserve a decode lane for request {rid}: "
+                    f"{len(self.kvpool.free)} of {self.kvpool.n_blocks} "
+                    f"blocks free, {self.blocks_per_seq} needed")
+            k, v = st.full_kv()
+            with tr.span("engine.admit.pool", record=True):
+                self.kvpool.admit(rid, k.to(self.device), v.to(self.device),
+                                  tokens=st.host_tokens)
+                self.kvpool.reserve(rid, self.max_len)
+            slot = free[0]
+            self.slot_rid[slot] = rid
+            self._invalidate_view()
+            return slot
 
     def evict(self, slot: int) -> None:
         rid = self.slot_rid[slot]
-        self.slot_rid[slot] = None
-        if rid is not None:
-            self.release_kv(rid)
+        with self.tracer.span("engine.evict", record=True,
+                              args=lambda: dict(rid=rid)):
+            self.slot_rid[slot] = None
+            if rid is not None:
+                self.release_kv(rid)
 
     def slot_lengths(self) -> List[int]:
         return [self.kvpool.lengths.get(rid, 0) if rid is not None else 0
@@ -350,31 +395,50 @@ class ReplicaEngine:
     def decode_iteration(self, tokens: Dict[int, int]) -> Dict[int, int]:
         """One continuous-batching iteration over the active slots.
         tokens: slot -> last token id.  Returns slot -> next token id."""
-        tok = [0] * self.max_slots
-        for s, t in tokens.items():
-            tok[s] = int(t)
-        cache_k, cache_v = self._dense_view()
+        tr = self.tracer
         lens = self.slot_lengths()
-        for s in tokens:
-            if lens[s] >= self.max_len:
-                raise ValueError("decode past engine max_len")
-        # a full inactive slot writes its ignored token at the last row
-        # instead of out of bounds (its lane cannot decode again)
-        step_lens = [min(n, self.max_len - 1) for n in lens]
-        cache = {"len": torch.tensor(step_lens, dtype=torch.int32,
-                                     device=self.device),
-                 "k": cache_k, "v": cache_v}
-        # the step writes every slot's new K/V into the view in place
-        # (inactive slots write at masked positions, as in the reference)
-        logits, _ = mdl.decode_step(
-            self.cfg, self.params, cache,
-            torch.tensor(tok, dtype=torch.long, device=self.device), impl="auto")
-        # append the new token's KV back to the pool — active slots only;
-        # slots reserved their full budget at admission, so this never
-        # allocates and cannot fail mid-iteration
-        for s in tokens:
-            pos = lens[s]
-            self.kvpool.append_token(self.slot_rid[s], cache_k[:, s, :, pos],
-                                     cache_v[:, s, :, pos])
-        nxt = logits.argmax(-1).tolist()
-        return {s: nxt[s] for s in tokens}
+        # each lane's request id and cached length (B2's cache length)
+        with tr.span("engine.decode_iteration", record=True,
+                     args=lambda: dict(lanes=[(self.slot_rid[s], lens[s])
+                                              for s in tokens])):
+            tok = [0] * self.max_slots
+            for s, t in tokens.items():
+                tok[s] = int(t)
+            if self._view is None:
+                with tr.span("engine.decode_iteration.view", record=True):
+                    self._dense_view()
+            cache_k, cache_v = self._view
+            for s in tokens:
+                if lens[s] >= self.max_len:
+                    raise ValueError("decode past engine max_len")
+            # a full inactive slot writes its ignored token at the last row
+            # instead of out of bounds (its lane cannot decode again)
+            step_lens = [min(n, self.max_len - 1) for n in lens]
+            # copies from pageable host memory: each waits for the stream
+            with tr.span("engine.decode_iteration.upload_lens", wait=True,
+                         record=True):
+                lens_t = torch.tensor(step_lens, dtype=torch.int32,
+                                      device=self.device)
+            with tr.span("engine.decode_iteration.upload_tokens", wait=True,
+                         record=True):
+                tok_t = torch.tensor(tok, dtype=torch.long,
+                                     device=self.device)
+            cache = {"len": lens_t, "k": cache_k, "v": cache_v}
+            # the step writes every slot's new K/V into the view in place
+            # (inactive slots write at masked positions, as in the reference)
+            with tr.span("engine.decode_iteration.step", record=True):
+                logits, _ = mdl.decode_step(self.cfg, self.params, cache,
+                                            tok_t, impl="auto")
+            # append the new token's KV back to the pool — active slots
+            # only; slots reserved their full budget at admission, so this
+            # never allocates and cannot fail mid-iteration
+            with tr.span("engine.decode_iteration.append", record=True):
+                for s in tokens:
+                    pos = lens[s]
+                    self.kvpool.append_token(self.slot_rid[s],
+                                             cache_k[:, s, :, pos],
+                                             cache_v[:, s, :, pos])
+            with tr.span("engine.decode_iteration.readback", wait=True,
+                         record=True):
+                nxt = logits.argmax(-1).tolist()
+            return {s: nxt[s] for s in tokens}

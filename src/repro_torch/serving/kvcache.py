@@ -24,6 +24,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.spans import Tracer
+
 
 def _chain_hash(parent: Optional[int], tokens: Tuple[int, ...]) -> int:
     """Prefix-chain hash: identifies block CONTENT + everything before it.
@@ -67,16 +69,20 @@ class PagedKVCache:
         field(default_factory=dict)
     stats: Dict[str, int] = field(default_factory=lambda: dict(
         lookups=0, hits=0, hit_tokens=0, blocks_shared=0, cow_forks=0))
+    #: the owning engine's spans (core/spans.py)
+    tracer: Tracer = field(default_factory=Tracer, compare=False, repr=False)
 
     # ------------------------------------------------------------------
     @classmethod
     def create(cls, n_layers: int, n_blocks: int, kv_heads: int,
                block_size: int, head_dim: int, dtype=torch.bfloat16,
-               device="cuda") -> "PagedKVCache":
+               device="cuda", tracer: Optional[Tracer] = None
+               ) -> "PagedKVCache":
         shape = (n_layers, n_blocks, kv_heads, block_size, head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
-                   block_size=block_size, free=list(range(n_blocks)))
+                   block_size=block_size, free=list(range(n_blocks)),
+                   tracer=tracer if tracer is not None else Tracer())
 
     @property
     def n_blocks(self) -> int:
@@ -90,7 +96,12 @@ class PagedKVCache:
                 >= self.blocks_needed(tokens))
 
     def _index(self, blocks: Sequence[int]) -> torch.Tensor:
-        return torch.tensor(list(blocks), dtype=torch.long, device=self.k.device)
+        # a copy from pageable host memory: it waits for the stream to drain
+        # (a totals-only span: a profiler range may open only inside the
+        # engine's own methods, and gathers also run outside them)
+        with self.tracer.span("pool.index", wait=True):
+            return torch.tensor(list(blocks), dtype=torch.long,
+                                device=self.k.device)
 
     # ------------------------------------------------------------------
     # allocation: blank blocks first, then LRU-evict the cached-prefix list
