@@ -96,10 +96,11 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, whichever thread launched."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add `n` to ``wrapper.launches``, whichever thread launched (a graph's
+    replay adds the launches it holds; its capture takes them off again)."""
     with _lock:
-        wrapper.launches += 1
+        wrapper.launches += n
 
 
 def raw_stream(device) -> int:

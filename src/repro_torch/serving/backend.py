@@ -6,7 +6,9 @@ on genuine engines:
 
 * ``short_prefill`` / ``short_full`` / ``long_full`` / ``*_decode`` run to
   completion the moment they are submitted (no policy preempts them), and
-  the measured compute time becomes the Work's duration.
+  the measured compute time becomes the Work's duration.  A short's fresh
+  prefill runs every layer in one timed call: on the card one replay of the
+  bucket's captured graph (`engine.PrefillGraphs`), which `warmup` captures.
 * ``long_prefill`` and ``long_decode`` are *preemptible*: they advance one
   quantum at a time through backend-internal ``ENGINE_STEP`` events
   (layers_per_quantum layers per step for prefill — the §5.1 suspension
@@ -60,7 +62,8 @@ from repro_torch.core.backend import ExecutionBackend
 from repro_torch.core.request import Request
 from repro_torch.core.simulator import Work
 from repro_torch.hardware import H100_SXM, resolve_device
-from repro_torch.serving.engine import PrefillState, ReplicaEngine, SlotsFull
+from repro_torch.serving.engine import (PrefillGraphs, PrefillState,
+                                        ReplicaEngine, SlotsFull)
 from repro_torch.sp.gang import (GangPrefillState, GangSPRunner, gang_degree,
                                  make_gang_mesh, plan_for_gang)
 from repro_torch.sp.planner import HardwareSpec
@@ -136,6 +139,10 @@ class EngineBackend(ExecutionBackend):
         self._parked_decode: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._pdone: Dict[int, int] = {}
         self._gang_runners: Dict[Tuple[int, str], GangSPRunner] = {}
+        #: the whole-stack prefill graphs every engine shares (an engine
+        #: replays them on the card only)
+        self.graphs = PrefillGraphs(cfg, params, device=self.device,
+                                    max_len=max_len, tracer=self.tracer)
         self.generated: Dict[int, List[int]] = {}         # request rid -> tokens
         #: counters and span totals (`tracer.stats`, core/spans.py): a span
         #: ``name`` keeps ``name:n``, ``name:ns``, ``name:self_ns`` and
@@ -177,8 +184,9 @@ class EngineBackend(ExecutionBackend):
 
     def warmup(self, lengths, replica_ids) -> None:
         """Build the kernels and run one prefill + decode per prompt length
-        on the given replicas, so kernel builds and first-call costs stay off
-        the measured clock."""
+        on the given replicas, and on the card capture the whole-stack
+        prefill graph of every bucket a prompt runs at, so kernel builds,
+        captures and first-call costs stay off the measured clock."""
         for rid in replica_ids:
             eng = self._engine(rid)
             for n in sorted(set(lengths)):
@@ -191,6 +199,8 @@ class EngineBackend(ExecutionBackend):
                 slot = eng.admit(-1, st)
                 eng.decode_iteration({slot: 0})
                 eng.evict(slot)
+            if eng.graphs is not None:      # one set: captured once
+                eng.graphs.warm(self.max_prompt)
         self._sync()
 
     def warmup_gang(self, lengths, degrees, *,
@@ -222,7 +232,7 @@ class EngineBackend(ExecutionBackend):
             eng = ReplicaEngine(self.cfg, self.params, max_slots=self.max_slots,
                                 max_len=self.max_len,
                                 layers_per_quantum=self.lpq, device=self.device,
-                                tracer=self.tracer)
+                                tracer=self.tracer, graphs=self.graphs)
             self._engines[rid] = eng
         return eng
 
@@ -340,10 +350,14 @@ class EngineBackend(ExecutionBackend):
         return dt
 
     def _complete_prefill(self, eng: ReplicaEngine, req: Request) -> float:
-        """Run remaining layers + first-token logits; park KV for decode."""
+        """Run remaining layers + first-token logits; park KV for decode.
+        A fresh prefill that feeds no calibration (a short: nothing preempts
+        it) asks for its whole stack in one timed call, which the engine runs
+        as one graph replay on the card unless it reuses a prefix."""
         st = self._psessions.pop(req.rid, None)
         if st is None:
             st = self._start_prefill(eng, req)
+            st.whole = not req.is_long
         dt = self._prefill_quanta(eng, st, self.cfg.num_layers,
                                   record=req.is_long)
         logits, d = self._timed("backend.prefill_logits",

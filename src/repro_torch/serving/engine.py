@@ -24,9 +24,17 @@ timeline (ranges carrying request ids and shapes, which the tracer's hook
 `_profiler_range` opens while a profiler is active), and every one is
 named ``engine.``: a device trace reader counts device events of any other
 name as work.
+
+A prefill asked to run its whole layer stack in one call
+(`PrefillState.whole`: a short, which runs to its end at submit and which
+nothing preempts) runs every layer in that call, and on the card, where it
+reuses no prefix and fits a bucket, as one replay of a CUDA graph
+(`PrefillGraphs`): the host issues one launch in place of ~64 operations a
+layer.
 """
 from __future__ import annotations
 
+import bisect
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,7 +43,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.spans import Tracer
 from repro_torch.hardware import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import model as mdl
 from repro_torch.serving.kvcache import PagedKVCache, PrefixHit
@@ -79,6 +88,10 @@ class PrefillState:
     prefix_k: Optional[torch.Tensor] = None   # (L, KV, P, hd) reused KV
     prefix_v: Optional[torch.Tensor] = None
     host_tokens: Optional[Tuple[int, ...]] = None  # full prompt, host ints
+    #: run every layer in the next `prefill_quantum` call: a prefill that
+    #: nothing preempts (a suffix prefill after a prefix hit keeps its
+    #: per-layer quanta; on the card, one replay of a `PrefillGraphs` graph)
+    whole: bool = False
 
     @property
     def prefix_len(self) -> int:
@@ -100,6 +113,148 @@ class PrefillState:
         return k, v
 
 
+def layer_slice(cfg: ModelConfig, params, x: torch.Tensor, lo: int, hi: int):
+    """Layers [lo, hi) of a prefill from position 0: (x, each layer's
+    KVCache (B, KV, S, hd))."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    kvs = []
+    for pl in params["layers"][lo:hi]:
+        x, kv = mdl._dense_layer(cfg, pl, x, positions,
+                                 sliding_window=cfg.sliding_window,
+                                 impl="auto", write_cache=True)
+        kvs.append(kv)
+    return x, kvs
+
+
+#: prompt lengths a whole-stack prefill graph is captured at: geometric
+#: below 1024 tokens, where a layer is bound by reading its weights and
+#: padding costs little; steps of 256-512 above, where padding costs device
+#: time (over the paper's length mix, 11.5 % more tokens than the prompts)
+BUCKETS = (64, 128, 256, 384, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072,
+           3584, 4096)
+
+
+class PrefillGraphs:
+    """The whole layer stack of one model's prefill, one CUDA graph per
+    prompt-length bucket, shared by every engine serving these weights on
+    this device.
+
+    A prompt of S tokens runs at the smallest bucket b >= S: its embedded
+    rows are copied into a static (1, b_max, d) input whose rows [S, b) are
+    zeroed (finite K/V for the masked keys, so no 0 x NaN reaches a real
+    row; causal masking, a sliding window included, keeps every real row
+    independent of them), positions run 0..b-1, and each layer's
+    `layer_slice` writes its K/V into one static (L, KV, b_max, hd) pair
+    shared by every bucket.  `run` clones the real rows out, so nothing a
+    later call reads aliases a static buffer or the graphs' memory pool.
+    Replays are sequential on the caller's stream.  A capture launches B1
+    without running it, so it takes its launches off `flash_attention`'s
+    count and each replay adds them back."""
+
+    def __init__(self, cfg: ModelConfig, params, *, device, max_len: int,
+                 tracer: Tracer):
+        self.cfg, self.params, self.tracer = cfg, params, tracer
+        self.device = resolve_device(device)
+        self.buckets = tuple(b for b in BUCKETS if b <= max_len)
+        self.graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
+        self._launches: Dict[int, int] = {}     # B1 launches in each graph
+        self._bufs: Optional[Tuple[torch.Tensor, ...]] = None
+        self._stream = self._pool = None
+
+    def bucket(self, S: int) -> Optional[int]:
+        """The bucket a prompt of S tokens runs at; None above the last."""
+        i = bisect.bisect_left(self.buckets, S)
+        return self.buckets[i] if i < len(self.buckets) else None
+
+    def _buffers(self) -> Tuple[torch.Tensor, ...]:
+        if self._bufs is None:
+            cfg, b = self.cfg, self.buckets[-1]
+            kw = dict(dtype=getattr(torch, cfg.dtype), device=self.device)
+            kv = (cfg.num_layers, cfg.num_kv_heads, b, cfg.head_dim)
+            self._bufs = (torch.zeros((1, b, cfg.d_model), **kw),
+                          torch.zeros((1, b, cfg.d_model), **kw),
+                          torch.zeros(kv, **kw), torch.zeros(kv, **kw))
+        return self._bufs
+
+    def _body(self, b: int) -> None:
+        """The captured work at bucket b: `layer_slice` a layer at a time
+        over the static input's first b rows (so the pool holds one layer's
+        K/V, not the stack's), each layer's K/V and the last x into the
+        static outputs."""
+        x_in, x_out, k_out, v_out = self._buffers()
+        x = x_in[:, :b]
+        for i in range(self.cfg.num_layers):
+            x, (kv,) = layer_slice(self.cfg, self.params, x, i, i + 1)
+            k_out[i, :, :b].copy_(kv.k[0])
+            v_out[i, :, :b].copy_(kv.v[0])
+        x_out[:, :b].copy_(x)
+
+    def capture(self, b: int) -> None:
+        """Capture bucket b's graph."""
+        if b in self.graphs:
+            return
+        self._buffers()
+        main = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+            # a first run on the capture stream, outside any capture, sets
+            # up what the stream's first kernels allocate (cuBLAS workspace)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                self._body(self.buckets[0])
+        graph = torch.cuda.CUDAGraph()
+        self._stream.wait_stream(main)
+        before = flash_attention.launches
+        with torch.cuda.stream(self._stream):
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                self._body(b)
+            finally:
+                graph.capture_end()
+        main.wait_stream(self._stream)
+        self._launches[b] = flash_attention.launches - before
+        _build.count_launch(flash_attention, -self._launches[b])
+        self.graphs[b] = graph
+        self.tracer.count("prefill_graph_captures")
+
+    def warm(self, max_prompt: int) -> None:
+        """Capture every bucket a prompt of up to `max_prompt` tokens runs
+        at, so no capture lands on a measured clock: the largest first, so
+        each smaller capture finds the blocks it needs among those the
+        larger ones left in the shared pool."""
+        last = self.bucket(max_prompt) or self.buckets[-1]
+        for b in reversed(self.buckets[:self.buckets.index(last) + 1]):
+            self.capture(b)
+
+    def _stage(self, x: torch.Tensor) -> int:
+        """Copy x (1, S, d) into the static input, its pad rows up to the
+        bucket zeroed; the bucket."""
+        S = x.shape[1]
+        b = self.bucket(S)
+        x_in = self._buffers()[0]
+        x_in[:, :S].copy_(x)
+        x_in[:, S:b].zero_()
+        return b
+
+    def _real_rows(self, S: int):
+        """Clones of the static outputs' first S rows: (x, K, V)."""
+        _, x_out, k_out, v_out = self._buffers()
+        return (x_out[:, :S].clone(), k_out[:, :, :S].clone(),
+                v_out[:, :, :S].clone())
+
+    def run(self, x: torch.Tensor):
+        """Every layer over x (1, S, d), S <= the last bucket, as one replay:
+        the real rows' (x (1, S, d), K (L, KV, S, hd), V), fresh tensors."""
+        b = self._stage(x)
+        self.capture(b)                 # lazily, where no warm-up ran
+        self.graphs[b].replay()
+        _build.count_launch(flash_attention, self._launches[b])
+        return self._real_rows(x.shape[1])
+
+
 class ReplicaEngine:
     """One model replica: preemptible prefill + slot-batched decode over a
     paged KV pool, on `device` (CUDA unless the caller passes "cpu")."""
@@ -107,7 +262,8 @@ class ReplicaEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
                  max_len: int = 512, layers_per_quantum: int = 2,
                  block_size: int = 16, n_blocks: Optional[int] = None,
-                 device="cuda", tracer: Optional[Tracer] = None):
+                 device="cuda", tracer: Optional[Tracer] = None,
+                 graphs: Optional[PrefillGraphs] = None):
         if cfg.family != "dense":
             raise NotImplementedError("the engine serves the dense family; the "
                                       "others run through the model API "
@@ -134,22 +290,13 @@ class ReplicaEngine:
             hd, self.dtype, device=self.device, tracer=self.tracer)
         self.slot_rid: List[Optional[int]] = [None] * max_slots
         self._view: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        #: the whole-stack prefill graphs the caller shares, used on the card
+        #: only (None: every prefill runs eagerly)
+        self.graphs = graphs if self.device.type == "cuda" else None
 
     # ---- model pieces -------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.params["embed"][tokens].to(self.dtype)
-
-    def _layer_slice(self, x: torch.Tensor, lo: int, hi: int):
-        cfg = self.cfg
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        kvs = []
-        for pl in self.params["layers"][lo:hi]:
-            x, kv = mdl._dense_layer(cfg, pl, x, positions,
-                                     sliding_window=cfg.sliding_window,
-                                     impl="auto", write_cache=True)
-            kvs.append(kv)
-        return x, kvs
 
     def _suffix_slice(self, x: torch.Tensor, pk: torch.Tensor,
                       pv: torch.Tensor, lo: int, hi: int):
@@ -211,26 +358,44 @@ class ReplicaEngine:
                                 host_tokens=host_tokens)
 
     def prefill_quantum(self, st: PrefillState) -> Tuple[PrefillState, bool]:
-        """Run up to layers_per_quantum layers; returns (state, done)."""
+        """Run up to layers_per_quantum layers (every layer left where
+        `st.whole` and no prefix is reused); returns (state, done)."""
+        nl = self.cfg.num_layers
         lo = st.layer
-        hi = min(lo + self.lpq, self.cfg.num_layers)
+        whole = st.whole and st.prefix_k is None
+        hi = nl if whole else min(lo + self.lpq, nl)
+        # one replay: the whole stack from layer 0 on the card, S in a bucket
+        b = (self.graphs.bucket(st.x.shape[1])
+             if whole and not lo and self.graphs is not None else None)
         tr = self.tracer
         with tr.span("engine.prefill_quantum", record=True, args=lambda: dict(
                 rid=st.rid, S=st.x.shape[1], P=st.prefix_len,
                 layers=f"{lo}-{hi}")):
-            with tr.span("engine.prefill_quantum.layers", record=True):
-                if st.prefix_k is not None:
-                    x, kvs = self._suffix_slice(st.x, st.prefix_k[lo:hi],
-                                                st.prefix_v[lo:hi], lo, hi)
-                else:
-                    x, kvs = self._layer_slice(st.x, lo, hi)
-            st.x = x
-            for kv in kvs:
-                st.kv_k.append(kv.k)
-                st.kv_v.append(kv.v)
+            if b is not None:
+                S = st.x.shape[1]
+                with tr.span("engine.prefill_quantum.graph", record=True):
+                    st.x, k, v = self.graphs.run(st.x)
+                st.kv_k.extend(k[i:i + 1] for i in range(nl))
+                st.kv_v.extend(v[i:i + 1] for i in range(nl))
+                tr.count("prefill_graph_layers", nl)
+                tr.count("prefill_graph_tokens", S)
+                tr.count("prefill_graph_pad_tokens", b - S)
+            else:
+                with tr.span("engine.prefill_quantum.layers", record=True):
+                    if st.prefix_k is not None:
+                        x, kvs = self._suffix_slice(
+                            st.x, st.prefix_k[lo:hi], st.prefix_v[lo:hi],
+                            lo, hi)
+                    else:
+                        x, kvs = layer_slice(self.cfg, self.params,
+                                             st.x, lo, hi)
+                st.x = x
+                for kv in kvs:
+                    st.kv_k.append(kv.k)
+                    st.kv_v.append(kv.v)
             st.layer = hi
             tr.count("prefill_layers", hi - lo)
-            return st, hi == self.cfg.num_layers
+            return st, hi == nl
 
     def prefill_logits(self, st: PrefillState) -> torch.Tensor:
         assert st.layer == self.cfg.num_layers
