@@ -26,12 +26,13 @@ BENCH = Path(__file__).resolve().parent
 
 
 def load_reference(cfg_file: Dict):
+    """The ``Reference`` class of the configuration's ``reference`` file."""
     path = BENCH / cfg_file["reference"]
     spec = importlib.util.spec_from_file_location(
         "reference_" + path.stem, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.Dense
+    return mod.Reference
 
 
 def sample(done: Sequence, n_served: Dict[int, int], tokens: int,

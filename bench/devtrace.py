@@ -6,9 +6,9 @@ the host was doing.
 `Spans` wraps each engine's ``prefill_quantum`` and ``decode_iteration``
 (and the calls around them) on the instance.  While a slice is open it
 records each call's shapes, so the work of the slice can be counted from
-shapes (`model_flops`, `kernels/`), and names the call on the profiler's
-timeline (``record_function``), so an idle gap on the device can be put
-down to the host call it fell in.  The slice opens and closes between
+shapes (the model module's counts, `kernels/`), and names the call on the
+profiler's timeline (``record_function``), so an idle gap on the device can
+be put down to the host call it fell in.  The slice opens and closes between
 arrivals, where every engine call has synchronised with the card.
 """
 from __future__ import annotations
@@ -29,9 +29,9 @@ HOST_OTHER = "host: scheduler, simulator and harness"
 class Spans:
     def __init__(self):
         self.active = False
-        #: prefill quanta in the slice: (new tokens S, cached P, layers,
-        #: logits follow)
-        self.quanta: List[Tuple[int, int, int, bool]] = []
+        #: prefill quanta in the slice: (new tokens S, cached P, the layers
+        #: [lo, hi) they ran, logits follow)
+        self.quanta: List[Tuple[int, int, int, int, bool]] = []
         #: decode iterations in the slice: each active lane's cached length
         self.decodes: List[List[int]] = []
 
@@ -53,7 +53,7 @@ class Spans:
                 out = fn(*args, **kw)
             if name == "prefill_quantum":
                 st = out[0]
-                self.quanta.append((S, P, st.layer - lo,
+                self.quanta.append((S, P, lo, st.layer,
                                     st.layer == eng.cfg.num_layers))
             return out
         return call

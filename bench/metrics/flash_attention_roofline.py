@@ -1,7 +1,7 @@
 """B1's share (%) of its roofline over the traced slice: the least time the
 chip could take for the prefill attention the slice's prefill quanta needed
-(FLOPs and bytes from shapes, `kernels/flash_attention.py`), over the
-device time of B1's kernels in the slice."""
+(FLOPs and bytes from each layer's shape, `kernels/flash_attention.py`),
+over the device time of B1's kernels in the slice."""
 from kernels import flash_attention as fa
 
 
@@ -13,8 +13,8 @@ def read(run):
                 if any(k in n for k in fa.KERNEL_NAMES))
     if not spent or not run.spans.quanta:
         return None
-    least = 0.0
-    for S, P, layers, _ in run.spans.quanta:
-        flops, nbytes = fa.work(run.sizes, S, P, run.elt_bytes)
-        least += layers * fa.roofline_s(flops, nbytes, run.peaks)
+    layers = run.sizes["layers"]
+    least = sum(fa.roofline_s(*fa.work(layer, S, P, run.elt_bytes), run.peaks)
+                for S, P, lo, hi, _ in run.spans.quanta
+                for layer in layers[lo:hi])
     return 100.0 * least / spent

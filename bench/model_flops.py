@@ -1,16 +1,11 @@
-"""Model FLOPs of the work the engines did, counted from shapes alone, for the
-whole step's share of the chip's peak (the ``mfu.*`` metrics).
-
-Per token and layer: 2 FLOPs per weight of the layer's matrices (q, k, v and
-o projections and the three SwiGLU matrices), plus 4 * H * hd per query-key
-pair that the query sees (the QK^T and PV products); per token whose logits
-are computed, 2 * d * vocab for the head.  Work a step does for an idle
-decode lane, or for the padded vocabulary, is not the model's and is not
-counted.
+"""The attention's share of the model FLOPs, counted from shapes alone, for
+the whole step's share of the chip's peak (the ``mfu`` metrics) and B1's
+roofline.  A model's own count, layer by layer, is its module's
+(``models/<kind>.py``: ``prefill_flops``, ``decode_flops``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Tuple
 
 
 def visible_pairs(S: int, P: int, W: int) -> int:
@@ -22,25 +17,9 @@ def visible_pairs(S: int, P: int, W: int) -> int:
     return n1 * P + n1 * (n1 + 1) // 2 + (S - n1) * W
 
 
-def layer_weights(c: Dict) -> int:
-    d, hd, ff = c["d_model"], c["head_dim"], c["d_ff"]
-    H, KV = c["num_heads"], c["num_kv_heads"]
-    return d * (H + 2 * KV) * hd + H * hd * d + 3 * d * ff
-
-
-def prefill_flops(c: Dict, S: int, P: int, layers: int, logits: bool) -> int:
-    """A prefill quantum: `layers` layers over S new tokens after P cached
-    ones, and the head on the last token when `logits`."""
-    attn = 4 * c["num_heads"] * c["head_dim"] * visible_pairs(
-        S, P, c["sliding_window"])
-    head = 2 * c["d_model"] * c["vocab_size"] if logits else 0
-    return layers * (2 * S * layer_weights(c) + attn) + head
-
-
-def decode_flops(c: Dict, cached: int) -> int:
-    """One decode token after `cached` tokens, through every layer and the
-    head."""
-    attn = 4 * c["num_heads"] * c["head_dim"] * visible_pairs(
-        1, cached, c["sliding_window"])
-    return (c["num_layers"] * (2 * layer_weights(c) + attn)
-            + 2 * c["d_model"] * c["vocab_size"])
+def attention_flops(layer: Tuple[int, int, int, int], S: int, P: int) -> int:
+    """One attention layer of shape (H, KV, hd, window) over S new tokens
+    after P cached ones: 4 * H * hd per visible query-key pair (the QK^T and
+    PV products)."""
+    H, _, hd, W = layer
+    return 4 * H * hd * visible_pairs(S, P, W)

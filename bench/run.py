@@ -4,12 +4,14 @@
     python3 bench/run.py --workload mistral_7b.azure_overload --seed 7 \\
         --seconds 51 --trace 0
 
-A cell is a configuration (``configs/<name>.json``), a traffic mix
+A cell is a configuration (``configs/<name>.json``, which names its model
+module, ``models/<kind>.py``, and its plain reference), a traffic mix
 (``traffic/<name>.json``) and the cell's own settings
 (``workloads/<cell>.json``: its rate in requests per cluster second and the
 check's limit); each metric is a reader of its own (``metrics/<name>.py``).
-All of them are found by the names in ``BENCHMARK.json``, so a cell or a
-metric is added by adding files.
+All of them are found by the names in ``BENCHMARK.json`` and the
+configuration file, so a cell, a metric or a model kind is added by adding
+files.
 
 A run builds the port's serving stack on the card from its public
 constructors (the pecsched policy over an `EngineBackend` of three
@@ -33,7 +35,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -52,9 +53,9 @@ import torch  # noqa: E402
 
 import check  # noqa: E402
 import devtrace  # noqa: E402
+import models  # noqa: E402
 import stats  # noqa: E402
 import traffic  # noqa: E402
-import weights  # noqa: E402
 
 #: top-level module names that may not be loaded in a run (the JAX
 #: reference package and JAX itself), compared whole
@@ -63,10 +64,6 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 PEAKS = {"flops": 989e12, "bytes_per_s": 3.35e12}
 #: the traced slice: where it opens in the window, and how long it lasts
 TRACE_AT, TRACE_S = 0.4, 6.0
-#: the rehearsal's sizes (CPU, float32): every width cut, for tests only
-REHEARSAL = {"num_layers": 2, "d_model": 64, "num_heads": 4,
-             "num_kv_heads": 2, "head_dim": 16, "d_ff": 128,
-             "vocab_size": 512, "max_len": 128, "dtype": "float32"}
 
 
 class NoResult(SystemExit):
@@ -93,35 +90,6 @@ def cell_files(name: str) -> SimpleNamespace:
         config=load_json(BENCH / "configs" / f"{cell['config']}.json"),
         mix=load_json(BENCH / "traffic" / f"{cell['traffic']}.json"),
         own=load_json(BENCH / "workloads" / f"{name}.json"))
-
-
-def model_sizes(cf: Dict, rehearse: bool) -> Dict:
-    """The configuration file's published keys under the port's names (and
-    the serving settings), as the run uses them."""
-    H = cf["num_attention_heads"]
-    c = {"num_layers": cf["num_hidden_layers"], "d_model": cf["hidden_size"],
-         "num_heads": H, "num_kv_heads": cf["num_key_value_heads"],
-         "head_dim": cf.get("head_dim") or cf["hidden_size"] // H,
-         "d_ff": cf["intermediate_size"], "vocab_size": cf["vocab_size"],
-         "rope_theta": float(cf["rope_theta"]),
-         "sliding_window": int(cf.get("sliding_window") or 0),
-         "norm_eps": float(cf["rms_norm_eps"]), "dtype": cf["torch_dtype"],
-         "max_len": cf["serving"]["max_len"]}
-    if rehearse:
-        if c["sliding_window"]:
-            c["sliding_window"] = 40
-        c.update(REHEARSAL)
-    c["padded_vocab"] = -(-c["vocab_size"] // 256) * 256
-    return c
-
-
-def port_config(cf: Dict, c: Dict):
-    from repro_torch.configs import get_config
-    keys = ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
-            "d_ff", "vocab_size", "rope_theta", "sliding_window", "norm_eps",
-            "dtype")
-    return dataclasses.replace(get_config(cf["port_config"]),
-                               **{k: c[k] for k in keys})
 
 
 def fit_prefill_target(em, longest: int, engines: int) -> float:
@@ -209,13 +177,14 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.set_device(device)
         torch.empty(1, device=device)       # the allocator exists from here
         torch.cuda.reset_peak_memory_stats(device)
-    c = model_sizes(f.config, rehearse)
-    cfg = port_config(f.config, c)
+    model = models.load(f.config["model"])
+    c = model.sizes(f.config, rehearse)
+    cfg = model.port_config(f.config, c)
     parts = {"imports_s": time.perf_counter() - T_START}
 
     t = time.perf_counter()
-    w = weights.draw(c, seed, device, getattr(torch, c["dtype"]))
-    params = weights.port_layout(w)
+    w = model.draw(c, seed, device, getattr(torch, c["dtype"]))
+    params = model.port_layout(w)
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
         else (lambda: None)
     sync()
@@ -298,7 +267,7 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *,
         requests=window, window_end=win.end, summary=summary,
         stats=dict(backend.stats), decode_s=backend.decode_s,
         sp_per_layer=backend.sp_per_layer_s(), setup_s=setup_s,
-        trace=trace_red, spans=spans, sizes=c, peaks=PEAKS,
+        trace=trace_red, spans=spans, sizes=c, model=model, peaks=PEAKS,
         elt_bytes=torch.empty((), dtype=getattr(torch, c["dtype"])).element_size())
     info = dict(
         cell=name, seed=seed, device=str(device),
@@ -348,9 +317,9 @@ def serve(name: str, seed: int, seconds: float, trace: bool, *,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    Dense = check.load_reference(f.config)
-    ref = Dense(c, weights.reference_layout(w))
-    low = Dense(c, weights.reference_layout(w), "fp8") if control else None
+    Reference = check.load_reference(f.config)
+    ref = Reference(c, model.reference_layout(w))
+    low = Reference(c, model.reference_layout(w), "fp8") if control else None
     g = check.gaps(ref, [prompts(r) for r in picked],
                    [generated[r.rid] for r in picked], device, low) \
         if picked else {"served_gap": None, "tokens": 0}
