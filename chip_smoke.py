@@ -19,7 +19,8 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                the plain version, must exceed), with median times of the
                kernel, the plain version and, as a yardstick only,
                ``scaled_dot_product_attention`` (``library_ms``; none for
-               the SSD scan, which no PyTorch call computes).  ``ms`` and
+               the SSD scan, which no PyTorch call computes; for B4,
+               ``torch._grouped_mm``).  ``ms`` and
                ``library_ms`` are calls issued one by one, the host's launch
                cost included, ``host_us`` the wrapper's host work per call;
                ``graph_ms`` and
@@ -31,7 +32,12 @@ Phases, one line each (a failing phase raises and the run exits non-zero):
                be bit-equal.  B3 in bf16 is held the same way on y and the
                state (``kernels/checks.py``: SSD_REL_TOL, against a dropped
                64-token u-tile), at 4 x 2048 for both models, a ragged
-               length and one 16384-token prompt alone.  Untimed edge cases
+               length and one 16384-token prompt alone.  B4 in bf16 at
+               Mellum2's prefill (4096 x 8 rows, d -> ff and ff -> d) and
+               decode (1, 2 and 8 lanes x 8 rows) over 64 experts, to 5e-3
+               in relative norm against its plain version in f32, a limit
+               that one expert's rows dropped must exceed; its repeats
+               bit-equal.  Untimed edge cases
                hold B1, B2 and B3 to their plain versions at the edges of
                their tiles, splits and chunks, B3 also at a slow decay that
                carries the state across 17 chunks (a cut state passing and
@@ -295,6 +301,9 @@ ROOT = Path(__file__).resolve().parent
 TOL = 2e-2                      # bf16: atol = rtol
 REL_TOL = 5e-3                  # bf16 B1: ||got - want|| / ||want|| per (batch, head,
 Q_ROWS = 1024                   # ... block of Q_ROWS queries)
+#: bf16 B4: ||got - want|| / ||want|| against the plain version in f32 on the
+#: same bf16 inputs (f32 sums in another order, the output rounded once)
+B4_REL_TOL = 5e-3
 #: claims: the share of requests whose greedy tokens are the same on the CPU
 #: and the card (a near tie between the top two logits may flip one argmax
 #: between devices, and then that request's later tokens)
@@ -770,6 +779,7 @@ def phase_kernels(torch, dev):
     edges = _edge_cases(torch, dev, g, rn)
     edges += _ssd_edge_cases(torch, dev, g)
     _ssd_cases(torch, dev, g, cases, rows)
+    _b4_cases(torch, dev, g, cases, rows)
     _say("kernels", cases=cases, edge_cases=edges)
     return rows
 
@@ -866,6 +876,79 @@ def _ssd_cases(torch, dev, g, cases, rows):
         cases.append(dict(case=name, chunk=chunk, kernel_chunk=chunk_len(s, ns),
                           flops=flops, bytes=nbytes, **row))
         rows.setdefault("ssd_scan", row)
+
+
+def _b4_cases(torch, dev, g, cases, rows):
+    """B4 at the main path's shapes over 64 experts, each token routed to 8
+    distinct experts at random: Mellum2's 4096-token prefill (4096 x 8 rows,
+    d 2304 -> ff 896 for the gate and up products, ff 896 -> d 2304 for
+    the down product) and its decode at 1, 2 and 8 lanes x 8 rows.  Each
+    against the plain version on the same inputs (B4_REL_TOL in relative
+    norm, as the card tests hold it; the plain version with one expert's
+    rows dropped must read above it), two identical calls bit-equal, one
+    launch counted a call; then timed beside ``torch._grouped_mm`` on the
+    same offsets (the library yardstick, which the port never calls)."""
+    from repro_torch.kernels.moe_grouped_gemm import moe_grouped_gemm, torch_grouped_gemm
+
+    def rel_err(got, want):
+        return float((got.float() - want).norm() / want.norm())
+    E, K = 64, 8
+    for name, tokens, d_in, d_out in (
+            ("b4_prefill_4096x8_gate_up", 4096, 2304, 896),
+            ("b4_prefill_4096x8_down", 4096, 896, 2304),
+            ("b4_decode_8x8_gate_up", 8, 2304, 896),
+            ("b4_decode_8x8_down", 8, 896, 2304),
+            ("b4_decode_2x8_gate_up", 2, 2304, 896),
+            ("b4_decode_1x8_gate_up", 1, 2304, 896)):
+        expert = torch.rand((tokens, E), generator=g, device=dev).topk(K, -1).indices
+        counts = torch.bincount(expert.flatten(), minlength=E)
+        offsets = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+        offsets[1:] = counts.cumsum(0)
+        n_rows = tokens * K
+        a = torch.randn((n_rows, d_in), generator=g, device=dev, dtype=torch.bfloat16)
+        b = (torch.randn((E, d_in, d_out), generator=g, device=dev)
+             * d_in ** -0.5).to(torch.bfloat16)
+        before = moe_grouped_gemm.launches
+        got = moe_grouped_gemm(a, b, offsets)
+        again = moe_grouped_gemm(a, b, offsets)
+        if moe_grouped_gemm.launches != before + 2:
+            raise AssertionError(f"{name}: two calls counted "
+                                 f"{moe_grouped_gemm.launches - before} launches")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two identical calls differ")
+        want = torch_grouped_gemm(a.float(), b.float(), offsets)
+        rel = rel_err(got, want)
+        if not rel < B4_REL_TOL:
+            raise AssertionError(f"{name}: ||got - want|| / ||want|| {rel} "
+                                 f"(limit {B4_REL_TOL})")
+        bounds = offsets.tolist()
+        e = next(i for i in range(E) if bounds[i + 1] > bounds[i])
+        dropped = want.clone()
+        dropped[bounds[e]:bounds[e + 1]] = 0
+        fault = rel_err(dropped, want)
+        if not fault > B4_REL_TOL:
+            raise AssertionError(f"{name}: one expert's rows dropped reads "
+                                 f"{fault}, inside the limit {B4_REL_TOL}")
+        del want, dropped, again
+        hit = int((counts > 0).sum())
+        flops = 2 * n_rows * d_in * d_out
+        nbytes = 2 * (hit * d_in * d_out + n_rows * (d_in + d_out))
+        sets = _copies(torch, dev, nbytes, _bound(flops, nbytes)[1], (a, b, offsets))
+        calls = [lambda t=t: moe_grouped_gemm(*t) for t in sets]
+        lib = [lambda t=t: torch._grouped_mm(t[0], t[1], offs=t[2][1:])
+               for t in sets]
+        row = _timed(dict(rel_err=rel, rel_tol=B4_REL_TOL,
+                          fault_rel_err={"dropped_expert_rows": fault},
+                          bit_equal_repeat=True, copies=len(sets),
+                          **_kernel_times(calls),
+                          plain_ms=_median_ms(lambda: torch_grouped_gemm(a, b, offsets),
+                                              3, 3),
+                          library_ms=_median_ms(lib), library_graph_ms=_graph_ms(lib)),
+                     flops, nbytes)
+        del sets, calls, lib
+        cases.append(dict(case=name, rows=n_rows, experts=E, experts_hit=hit,
+                          flops=flops, bytes=nbytes, **row))
+        rows.setdefault("moe_grouped_gemm", row)
 
 
 def _ssd_edge_cases(torch, dev, g):
@@ -1224,9 +1307,10 @@ def _profile_steps(torch, step, n):
 def _counters():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.moe_grouped_gemm import moe_grouped_gemm
     from repro_torch.kernels.ssd_kernel import ssd_scan
     return {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "moe_grouped_gemm": moe_grouped_gemm}
 
 
 def _run_counted(torch, fn):
@@ -1250,16 +1334,19 @@ def _expect(phase, what, got, want):
 
 def _expected_launches(cfg):
     """{kernel: (launches per prefill, per decode step)} on a model's main
-    path through the model API."""
+    path through the model API: B4 three times in every moe layer (gate,
+    up, down)."""
     n, fam = cfg.num_layers, cfg.family
     if fam in ("ssm", "hybrid"):
         attn = n // cfg.attn_every if cfg.attn_every else 0
         return {"ssd_scan": (n, 0), "flash_attention": (attn, 0),
-                "flash_decode": (0, attn)}
+                "flash_decode": (0, attn), "moe_grouped_gemm": (0, 0)}
     if fam == "audio":      # encoder, decoder self and cross attention
         return {"ssd_scan": (0, 0), "flash_attention": (cfg.encoder_layers + 2 * n, 0),
-                "flash_decode": (0, 2 * n)}
-    return {"ssd_scan": (0, 0), "flash_attention": (n, 0), "flash_decode": (0, n)}
+                "flash_decode": (0, 2 * n), "moe_grouped_gemm": (0, 0)}
+    b4 = 3 * n if fam == "moe" else 0
+    return {"ssd_scan": (0, 0), "flash_attention": (n, 0), "flash_decode": (0, n),
+            "moe_grouped_gemm": (b4, b4)}
 
 
 def _nbytes(tree):
@@ -3696,13 +3783,18 @@ def _phases(torch, smi, matrix_job) -> int:
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                                 "src/repro/kernels/flash_decode.py:72"),
                "ssd_scan": ("src/repro_torch/csrc/ssd_scan_tc.cu",
-                            "src/repro/kernels/ssd_kernel.py:74")}
+                            "src/repro/kernels/ssd_kernel.py:74"),
+               # no TPU kernel: the reference's one-hot einsum dispatch
+               "moe_grouped_gemm": ("src/repro_torch/csrc/moe_grouped_gemm.cu",
+                                    "src/repro/models/moe.py:83")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name]
+        err = {"rel_err": r["rel_err"]} if "max_abs_err" not in r else {
+            "max_abs_err": r["max_abs_err"]}
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=launches[name],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            **err, ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,7 +27,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("flash_attention", "flash_decode", "ssd_scan", "ssd_scan_tc")
+SOURCES = ("flash_attention", "flash_decode", "ssd_scan", "ssd_scan_tc",
+           "moe_grouped_gemm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

@@ -19,6 +19,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import replay
 from repro_torch.kernels.flash_attention import flash_attention, torch_attention
 from repro_torch.kernels.flash_decode import flash_decode, torch_decode
+from repro_torch.kernels.moe_grouped_gemm import (moe_grouped_gemm,
+                                                  torch_grouped_gemm)
 from repro_torch.kernels.ssd_kernel import ssd_scan as _ssd_kernel
 from repro_torch.kernels.ssd_kernel import torch_ssd_scan
 
@@ -65,6 +67,17 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk=256, init_state=None,
                            chunk=chunk, **kw)
     if impl == "ref":
         return _ref.ssd_reference(x, dt, A, B, C, D, **kw)
+    raise ValueError(f"unknown impl {impl}")
+
+
+def grouped_gemm(a, b, offsets, *, impl="auto"):
+    """The routed experts' products: a (rows, K) sorted by expert, b (E, K,
+    N), offsets (E + 1,) int32 -> (rows, N), rows past offsets[E] unset
+    ("auto" on the card) or zero."""
+    if impl == "auto":
+        return moe_grouped_gemm(a, b, offsets)
+    if impl in ("torch", "ref"):
+        return torch_grouped_gemm(a, b, offsets)
     raise ValueError(f"unknown impl {impl}")
 
 

@@ -7,12 +7,14 @@ the half-split rotation, and linear layers cast the weight to x's dtype.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.layered import Rope, Yarn
 from repro_torch.kernels import ops
 from repro_torch.models.sharding import current_rules, divides
 from repro_torch.sp.common import as_axes
@@ -24,15 +26,41 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (..., S, n, hd), positions (..., S) or (S,)."""
+def yarn_inv_freq(theta: float, hd: int, y: Yarn, device) -> torch.Tensor:
+    """YaRN's inverse frequencies (hd/2,) in f32: dims rotating fewer than
+    ``beta_slow`` times over the original context are interpolated (1 /
+    (factor x theta^(2i/hd))), those rotating more than ``beta_fast`` times
+    kept, and a linear ramp blends the dims between."""
+    half = hd // 2
+
+    def dim(rotations):   # the dim that turns `rotations` times over the context
+        return hd * math.log(y.original_max_position_embeddings
+                             / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+    low = max(math.floor(dim(y.beta_fast)), 0)
+    high = min(math.ceil(dim(y.beta_slow)), hd - 1)
+    pos = theta ** (torch.arange(half, dtype=torch.float32, device=device) / half)
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - low)
+            / ((high - low) or 0.001)).clamp(0, 1)
+    return (1.0 / pos) * (1 - ramp) + (1.0 / (y.factor * pos)) * ramp
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         yarn: Optional[Yarn] = None) -> torch.Tensor:
+    """x (..., S, n, hd), positions (..., S) or (S,).  With `yarn`, YaRN's
+    frequencies (`yarn_inv_freq`) and cos and sin scaled by its attention
+    factor."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=x.device) / half))
+    if yarn is None:
+        freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                              device=x.device) / half))
+    else:
+        freqs = yarn_inv_freq(theta, hd, yarn, x.device)
     angles = positions[..., None].float() * freqs          # (..., S, half)
     cos = torch.cos(angles)[..., None, :]                  # broadcast over heads
     sin = torch.sin(angles)[..., None, :]
+    if yarn is not None:
+        cos, sin = cos * yarn.attention_factor, sin * yarn.attention_factor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -63,8 +91,10 @@ def attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                     write_cache: bool = False,
                     cross_kv: Optional[KVCache] = None,
                     cross_len: Optional[torch.Tensor] = None,
-                    impl: str = "auto", attn_fn=None):
-    """Full-sequence attention (prefill).  x (B, S, d).
+                    impl: str = "auto", attn_fn=None,
+                    rot: Optional[Rope] = None):
+    """Full-sequence attention (prefill).  x (B, S, d).  rot: the layer's
+    RoPE (`configs.layered.layer_rope`; default: cfg.rope_theta's).
 
     write_cache: also return a KVCache of the projected K/V (B, KV, S, hd).
     cross_kv: attend to these K/V (B, KV, Skv, hd) instead (cross
@@ -79,8 +109,9 @@ def attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     if cross_kv is None:
         k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
         v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        rot = rot or Rope(cfg.rope_theta)
+        q = rope(q, positions, *rot)
+        k = rope(k, positions, *rot)
         kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     else:
         kh, vh = cross_kv
@@ -103,9 +134,10 @@ def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                            cache_len: torch.Tensor, *, sliding_window: int = 0,
                            ring_buffer: bool = False, cross: bool = False,
                            cross_len: Optional[torch.Tensor] = None,
-                           impl: str = "auto"):
+                           impl: str = "auto", rot: Optional[Rope] = None):
     """One-token decode.  x (B, d); cache k/v (B, KV, S_max, hd); cache_len
-    (B,) = tokens already cached.  Returns (out (B, d), cache).
+    (B,) = tokens already cached.  Returns (out (B, d), cache).  rot: the
+    layer's RoPE, as in `attention_block`.
 
     The new token's K/V is written IN PLACE into ``cache`` at each
     sequence's own position (an index write, where the reference rewrites
@@ -125,8 +157,9 @@ def decode_attention_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         return linear(o.reshape(B, H * hd), p["wo"]), cache
     k = linear(x, p["wk"], p.get("bk")).reshape(B, KV, hd)
     v = linear(x, p["wv"], p.get("bv")).reshape(B, KV, hd)
-    q = rope(q[:, None], cache_len[:, None], cfg.rope_theta)[:, 0]   # pos = len
-    k = rope(k[:, None], cache_len[:, None], cfg.rope_theta)[:, 0]
+    rot = rot or Rope(cfg.rope_theta)
+    q = rope(q[:, None], cache_len[:, None], *rot)[:, 0]   # pos = len
+    k = rope(k[:, None], cache_len[:, None], *rot)[:, 0]
     S_max = cache.k.shape[2]
     pos = cache_len % S_max if ring_buffer else cache_len
     rows = torch.arange(B, device=x.device)

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.layered import LayeredConfig, layer_rope, layer_window
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
@@ -105,6 +106,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return p
 
 
+def moe_window(cfg: ModelConfig, li: int) -> int:
+    """The window of moe layer `li` in `forward`: its own where the config
+    sets one per layer; none for a plain config, whose moe layers the
+    reference's forward runs without its ``sliding_window`` (a plain moe
+    config given a window keeps it for its cache's ring alone, as the
+    ring-buffer decode's parity with the reference needs)."""
+    return layer_window(cfg, li) if isinstance(cfg, LayeredConfig) else 0
+
+
 def _remat(fn, remat: bool):
     """fn, or fn under an activation checkpoint: the backward recomputes the
     body's activations from its inputs (the reference's jax.checkpoint)."""
@@ -112,10 +122,11 @@ def _remat(fn, remat: bool):
 
 
 def _dense_layer(cfg, pl, x, positions, *, sliding_window, impl, write_cache,
-                 attn_fn=None):
+                 attn_fn=None, rot=None):
     h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
                           positions, sliding_window=sliding_window,
-                          write_cache=write_cache, impl=impl, attn_fn=attn_fn)
+                          write_cache=write_cache, impl=impl, attn_fn=attn_fn,
+                          rot=rot)
     kv = None
     if write_cache:
         h, kv = h
@@ -150,16 +161,38 @@ def _hybrid_segment(cfg, pls, ps, x, positions, *, impl, write_cache):
     return x, sts, kv
 
 
-def _moe_layer(cfg, pl, x, positions, *, impl, write_cache, moe_cf=None):
+def _moe_layer(cfg, pl, x, positions, *, impl, write_cache, moe_cf=None,
+               sliding_window=0, rot=None, attn_fn=None, live=None, aux=True):
+    """Attention, then the moe block: (x, KV or None, the block's aux or
+    None).  live (B, S): the rows that are tokens (`moe.expert_partial`)."""
     h = L.attention_block(cfg, pl["attn"], L.rms_norm(x, pl["ln1"], cfg.norm_eps),
-                          positions, write_cache=write_cache, impl=impl)
+                          positions, sliding_window=sliding_window,
+                          write_cache=write_cache, impl=impl, attn_fn=attn_fn,
+                          rot=rot)
     kv = None
     if write_cache:
         h, kv = h
     x = x + h
-    y, aux = MOE.moe_block(cfg, pl["moe"], L.rms_norm(x, pl["ln2"], cfg.norm_eps),
-                           capacity_factor=moe_cf)
-    return x + y, kv, aux
+    y, a = MOE.moe_block(cfg, pl["moe"], L.rms_norm(x, pl["ln2"], cfg.norm_eps),
+                         capacity_factor=moe_cf, live=live, impl=impl, aux=aux)
+    return x + y, kv, a
+
+
+def serve_layer(cfg: ModelConfig, params: Params, li: int, x: torch.Tensor,
+                positions: torch.Tensor, *, impl: str = "auto", attn_fn=None,
+                live: Optional[torch.Tensor] = None):
+    """Layer `li` of a dense, vlm or moe stack as a serving prefill runs it:
+    its own window and RoPE (`configs.layered`), the K/V kept: (x, KVCache
+    (B, KV, S, hd)).  attn_fn: the core attention's hook (`attention_block`;
+    a suffix prefill puts the cached prefix before the keys there).  live
+    (B, S): the rows that are tokens, for moe (pad rows take no expert)."""
+    pl = params["layers"][li]
+    kw = dict(sliding_window=layer_window(cfg, li), rot=layer_rope(cfg, li),
+              impl=impl, write_cache=True, attn_fn=attn_fn)
+    if cfg.family == "moe":
+        x, kv, _ = _moe_layer(cfg, pl, x, positions, live=live, aux=False, **kw)
+        return x, kv
+    return _dense_layer(cfg, pl, x, positions, **kw)
 
 
 def _project_cross(cfg: ModelConfig, p, enc_out: torch.Tensor) -> L.KVCache:
@@ -229,10 +262,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     P + S positions), "ssm" (SSMState), "sh_kv" (hybrid, one per
     shared-block use) and "cross_kv" (audio).  remat: each layer body (the
     hybrid: each segment; audio: each encoder and decoder layer) runs under
-    an activation checkpoint."""
+    an activation checkpoint.  A dense, vlm or moe layer attends within its
+    own window with its own RoPE (`configs.layered`); `sliding_window`,
+    where given, replaces the dense and vlm layers' windows."""
     fam = cfg.family
     dt = _dtype(cfg)
-    sw = cfg.sliding_window if sliding_window is None else sliding_window
     tokens = batch["tokens"]
     B = tokens.shape[0]
     x = params["embed"][tokens].to(dt)
@@ -247,16 +281,20 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     kvs, sts = [], []
     if fam in ("dense", "vlm"):
         layer = _remat(_dense_layer, remat)
-        for pl in params["layers"]:
-            x, kv = layer(cfg, pl, x, positions, sliding_window=sw, impl=impl,
-                          write_cache=write_cache)
+        for li, pl in enumerate(params["layers"]):
+            x, kv = layer(cfg, pl, x, positions, impl=impl,
+                          sliding_window=layer_window(cfg, li) if sliding_window is None
+                          else sliding_window,
+                          write_cache=write_cache, rot=layer_rope(cfg, li))
             kvs.append(kv)
     elif fam == "moe":
         layer = _remat(_moe_layer, remat)
         moe_aux = []
-        for pl in params["layers"]:
+        for li, pl in enumerate(params["layers"]):
             x, kv, a = layer(cfg, pl, x, positions, impl=impl,
-                             write_cache=write_cache, moe_cf=moe_cf)
+                             write_cache=write_cache, moe_cf=moe_cf,
+                             sliding_window=moe_window(cfg, li),
+                             rot=layer_rope(cfg, li))
             kvs.append(kv)
             moe_aux.append(a)
         for name in ("lb_loss", "dropped_frac"):
@@ -449,14 +487,18 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
                 token: torch.Tensor, *, impl: str = "auto",
-                ring_buffer: bool = False):
+                ring_buffer: bool = False,
+                active: Optional[torch.Tensor] = None):
     """token (B,) int -> (logits (B, V), cache).  One serve step; the new
     token's K/V and the new SSM/conv states are written into the cache in
     place, and cache["len"] advances by one.  moe routes with the capacity
     factor min(decode_capacity_factor, E).  ring_buffer: the self-attention
     caches of the dense, vlm and moe layers and the hybrid's shared block
     are rings (written at len % S_max, attended in full, no window), as the
-    reference passes it; audio's decoder keeps its linear cache."""
+    reference passes it; audio's decoder keeps its linear cache.  Each
+    layer attends within its own window with its own RoPE
+    (`configs.layered`).  active (B,) bool: the lanes that decode a
+    request; moe gives the others no expert."""
     fam = cfg.family
     dt = _dtype(cfg)
     x = params["embed"][token].to(dt)                        # (B, d)
@@ -468,8 +510,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
             h, _ = L.decode_attention_block(
                 cfg, pl["attn"], L.rms_norm(x, pl["ln1"], eps),
                 L.KVCache(cache["k"][li], cache["v"][li]), clen,
-                sliding_window=0 if fam == "audio" or ring else cfg.sliding_window,
-                ring_buffer=ring, impl=impl)
+                sliding_window=0 if fam == "audio" or ring else layer_window(cfg, li),
+                ring_buffer=ring, impl=impl, rot=layer_rope(cfg, li))
             x = x + h
             if fam == "audio":
                 h, _ = L.decode_attention_block(
@@ -482,7 +524,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
                 y, _ = MOE.moe_block(cfg, pl["moe"],
                                      L.rms_norm(x, pl["ln2"], eps)[:, None],
                                      capacity_factor=min(float(cfg.decode_capacity_factor),
-                                                         float(cfg.num_experts)))
+                                                         float(cfg.num_experts)),
+                                     live=None if active is None else active[:, None],
+                                     impl=impl, aux=False)
                 x = x + y[:, 0]
             else:
                 x = x + L.swiglu(L.rms_norm(x, pl["ln2"], eps), pl["mlp"])

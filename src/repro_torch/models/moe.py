@@ -20,15 +20,34 @@ of one range of experts over the kept assignments of one range of tokens.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import swiglu
 
 MOE_GROUP_SIZE = 2048  # tokens per routing group (GShard-style)
+
+#: the int64 scalar on the device that `expert_partial` adds the experts it
+#: gave rows to (`tally_into`); None: no tally
+_TALLY: contextvars.ContextVar = contextvars.ContextVar("moe_tally", default=None)
+
+
+@contextlib.contextmanager
+def tally_into(t: Optional[torch.Tensor]):
+    """Within: each `expert_partial` of this thread adds to `t` (a 0-dim
+    int64 tensor on its device) how many of its experts it gave rows to,
+    as a device operation (a graph captured within adds at each replay)."""
+    token = _TALLY.set(t)
+    try:
+        yield
+    finally:
+        _TALLY.reset(token)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -128,18 +147,30 @@ def _shared(p, x, y):
 
 def expert_partial(cfg: ModelConfig, p: Dict[str, torch.Tensor], r: Routing,
                    x: torch.Tensor, *, e0: int = 0,
-                   tokens: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                   tokens: Optional[Tuple[int, int]] = None,
+                   live: Optional[torch.Tensor] = None,
+                   impl: str = "auto") -> torch.Tensor:
     """Per token of `tokens` (a range [t0, t1) of the routing's tokens,
     flattened over its groups in order; default all), the f32 sum over its
     kept assignments to the experts [e0, e0 + E_loc) of gate x SwiGLU_e(x):
     (t1 - t0, d).  `p` holds those experts' weights (w_gate, w_up (E_loc, d,
-    ff), w_down (E_loc, ff, d)); `x` (T, d) every routed token's input.
-    Each expert with kept assignments there runs its SwiGLU on its own rows
-    (matmuls in x's dtype, the gates in x's dtype); each (token, k) output
-    lands in its own row and the rows are summed over k in order
-    (deterministic, where an ``index_add_`` on the card is not).  On the
-    "meta" device (the dry run, which has no values to route by) the
-    reference's one-hot dispatch restricted to the range
+    ff), w_down (E_loc, ff, d)); `x` (T, d) every routed token's input;
+    `live` (T,) bool, where given, the tokens that are tokens (a padded
+    bucket's pad rows and idle decode lanes are not, and take no expert).
+
+    Every step runs on x's device, with shapes that follow T alone, so no
+    value is read back and a CUDA graph captures the block: the (token, k)
+    assignments are sorted by expert (stably: an expert's rows keep their
+    (token, k) order; those not run here sort last), each expert's row
+    bounds come from the counts, the rows are gathered, and the grouped
+    GEMM (`ops.grouped_gemm`: B4 on the card with impl "auto", one product
+    per expert otherwise) runs the gate and up products and the down
+    product, silu(g) x u between, in x's dtype.  Each row is scaled by its
+    gate (in x's dtype), returned to its (token, k) place, and the rows
+    are summed over k in order: no atomics, so the result is
+    deterministic.  Under `tally_into`, the experts given rows are added
+    to the tally.  On the "meta" device (the dry run, which has no values
+    to route by) the reference's one-hot dispatch restricted to the range
     (`_expert_partial_onehot`)."""
     T, d = x.shape
     t0, t1 = tokens or (0, T)
@@ -147,24 +178,28 @@ def expert_partial(cfg: ModelConfig, p: Dict[str, torch.Tensor], r: Routing,
         return _expert_partial_onehot(cfg, p, r, x, e0)[t0:t1]
     K = cfg.experts_per_token
     n_exp = p["w_gate"].shape[0]
+    dev, dt = x.device, x.dtype
     flat = r.expert.flatten()[t0 * K:t1 * K]
     mine = r.keep.flatten()[t0 * K:t1 * K] & (flat >= e0) & (flat < e0 + n_exp)
-    kept = torch.nonzero(mine).squeeze(1)                     # (token, k) order
-    kept = kept[torch.sort(flat[kept], stable=True).indices]  # grouped by expert
-    rows = torch.bincount(flat[kept] - e0, minlength=n_exp).tolist()
-    xin = x[t0:t1][kept // K]
-    gate = r.gate.flatten()[t0 * K:t1 * K][kept].to(x.dtype).float()
-    out = torch.empty_like(xin)
-    start = 0
-    for e, n in enumerate(rows):
-        if n:
-            xe = xin[start:start + n]
-            h = F.silu(torch.matmul(xe, p["w_gate"][e].to(x.dtype))) \
-                * torch.matmul(xe, p["w_up"][e].to(x.dtype))
-            out[start:start + n] = torch.matmul(h, p["w_down"][e].to(x.dtype))
-            start += n
-    y = torch.zeros(((t1 - t0) * K, d), dtype=torch.float32, device=x.device)
-    y[kept] = out.float() * gate[:, None]
+    if live is not None:
+        mine &= live[t0:t1, None].expand(-1, K).reshape(-1)
+    key = torch.where(mine, flat - e0, n_exp)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.zeros(n_exp + 1, dtype=torch.int32, device=dev).index_add_(
+        0, key, torch.ones_like(key, dtype=torch.int32))
+    offsets = torch.zeros(n_exp + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(counts[:n_exp], 0)
+    tally = _TALLY.get()
+    if tally is not None:
+        tally.add_((counts[:n_exp] > 0).sum())
+    xin = x[t0:t1][order // K]
+    g = ops.grouped_gemm(xin, p["w_gate"].to(dt), offsets, impl=impl)
+    u = ops.grouped_gemm(xin, p["w_up"].to(dt), offsets, impl=impl)
+    out = ops.grouped_gemm(F.silu(g) * u, p["w_down"].to(dt), offsets,
+                           impl=impl)
+    gate = r.gate.flatten()[t0 * K:t1 * K][order].to(dt).float()
+    rows = torch.where(mine[order][:, None], out.float() * gate[:, None], 0.0)
+    y = torch.zeros_like(rows).index_copy(0, order, rows)
     return y.reshape(t1 - t0, K, d).sum(1)
 
 
@@ -190,15 +225,21 @@ def _expert_partial_onehot(cfg: ModelConfig, p: Dict[str, torch.Tensor], r: Rout
 
 def moe_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
               capacity_factor: Optional[float] = None,
-              group_size: int = MOE_GROUP_SIZE):
+              group_size: int = MOE_GROUP_SIZE,
+              live: Optional[torch.Tensor] = None, impl: str = "auto",
+              aux: bool = True):
     """x (B, S, d) -> (y (B, S, d), aux {"lb_loss", "dropped_frac"}):
     `route`, then `expert_partial` over every expert and token (on "meta"
     the reference's one-hot dispatch), rounded to x's dtype, plus the
-    shared expert where the config has one."""
+    shared expert where the config has one.  live (B, S) bool: the rows
+    that are tokens (`expert_partial`); aux False: None in aux's place
+    (serving, which reads no load-balance loss)."""
     B, S, d = x.shape
     r = route(cfg, p["router"], x, capacity_factor=capacity_factor, group_size=group_size)
-    y = expert_partial(cfg, p, r, x.reshape(B * S, d)).reshape(B, S, d).to(x.dtype)
-    return _shared(p, x, y), _aux(cfg, r)
+    y = expert_partial(cfg, p, r, x.reshape(B * S, d),
+                       live=None if live is None else live.reshape(B * S),
+                       impl=impl).reshape(B, S, d).to(x.dtype)
+    return _shared(p, x, y), (_aux(cfg, r) if aux else None)
 
 
 def moe_block_onehot(cfg: ModelConfig, p: Dict[str, torch.Tensor],

@@ -324,7 +324,7 @@ def _mlp(rk, p, ps, h, seq: Axes):
 
 
 def _moe(rk, cfg: ModelConfig, pl: Plan, p, ps, h, seq: Axes, cf=None, *,
-         balance: bool = False):
+         balance: bool = False, impl: str = "auto"):
     """The moe block (`moe.moe_block`) of the rank's normalised rows h (b,
     S, d), the whole sequence: (its output in the residual's layout over
     `seq`, with `balance` the load-balance loss of every group, else None:
@@ -338,7 +338,8 @@ def _moe(rk, cfg: ModelConfig, pl: Plan, p, ps, h, seq: Axes, cf=None, *,
     reference's combine einsum yields it), are summed over the expert
     axes onto the residual's sequence (`_reduce_to`): a reduce-scatter,
     or, with the experts whole, a local cut.  The load-balance means are
-    psummed over the batch axes where each rank routed its own groups."""
+    psummed over the batch axes where each rank routed its own groups.
+    impl: the experts' grouped GEMM's (`ops.grouped_gemm`)."""
     b, S, d = h.shape
     own = pl.moe_batch == pl.batch
     xr = h if own else rk.all_gather(h, pl.batch, axis=0)
@@ -351,7 +352,7 @@ def _moe(rk, cfg: ModelConfig, pl: Plan, p, ps, h, seq: Axes, cf=None, *,
     t0 = 0 if own else rk.index(pl.batch) * b * S
     y = MOE.expert_partial(cfg, experts, r, xr.reshape(-1, d),
                            e0=rk.index(ea) * experts["w_gate"].shape[0],
-                           tokens=(t0, t0 + b * S))
+                           tokens=(t0, t0 + b * S), impl=impl)
     y = _reduce_to(rk, y.reshape(b, S, d).to(h.dtype), ea, seq)
     if "shared" in p:
         y = y + _mlp(rk, p["shared"], ps["shared"], h, seq)
@@ -527,7 +528,8 @@ def _layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, positions, *, impl: str,
     x = x + h
     h = L.rms_norm(rk.all_gather(x, pl.seq, axis=1), p["ln2"], eps)
     if cfg.family == "moe":
-        y, lb = _moe(rk, cfg, pl, p["moe"], ps["moe"], h, pl.seq, balance=balance)
+        y, lb = _moe(rk, cfg, pl, p["moe"], ps["moe"], h, pl.seq, balance=balance,
+                     impl=impl)
         return x + y, kv, lb
     return x + _mlp(rk, p["mlp"], ps["mlp"], h, pl.seq), kv, None
 
@@ -768,7 +770,8 @@ def _decode_layer(rk, cfg: ModelConfig, pl: Plan, p, ps, x, kc, vc, clen, *,
     h = L.rms_norm(x, p["ln2"], eps)
     if cfg.family == "moe":
         cf = min(float(cfg.decode_capacity_factor), float(cfg.num_experts))
-        return x + _moe(rk, cfg, pl, p["moe"], ps["moe"], h[:, None], (), cf)[0][:, 0]
+        return x + _moe(rk, cfg, pl, p["moe"], ps["moe"], h[:, None], (), cf,
+                        impl=impl)[0][:, 0]
     if cross is not None:
         xk, xv, xlen = cross
         q = rk.all_gather(*_col(rk, h, p["xattn"], ps["xattn"], "wq", "bq"), axis=-1)

@@ -143,6 +143,8 @@ class EngineBackend(ExecutionBackend):
         #: replays them on the card only)
         self.graphs = PrefillGraphs(cfg, params, device=self.device,
                                     max_len=max_len, tracer=self.tracer)
+        #: moe: the experts' tally the graphs and every engine share
+        self.tally = self.graphs.tally
         self.generated: Dict[int, List[int]] = {}         # request rid -> tokens
         #: counters and span totals (`tracer.stats`, core/spans.py): a span
         #: ``name`` keeps ``name:n``, ``name:ns``, ``name:self_ns`` and
@@ -171,6 +173,8 @@ class EngineBackend(ExecutionBackend):
         self._pdone.clear()
         self.generated.clear()
         self.tracer.reset()
+        if self.tally is not None:
+            self.tally.reset()
         self.measured_s = 0.0
         self.decode_s = 0.0
 
@@ -304,9 +308,12 @@ class EngineBackend(ExecutionBackend):
 
     def _first_token(self, logits: torch.Tensor) -> int:
         """A prefill's first token: a readback, after the timed call's
-        synchronise, so its ``wait`` span reads ~0."""
+        synchronise, so its ``wait`` span reads ~0 (moe: with the experts'
+        tally in the same copy)."""
         with self.tracer.span("backend.first_token", wait=True):
-            return int(logits[0].argmax())
+            if self.tally is None:
+                return int(logits[0].argmax())
+            return self.tally.read(logits[0].argmax(), self.tracer)[0]
 
     def _decode_iter(self, eng: ReplicaEngine, active: Dict[int, int]):
         """One timed decode iteration; counts its tokens and seconds."""

@@ -31,6 +31,12 @@ nothing preempts) runs every layer in that call, and on the card, where it
 reuses no prefix and fits a bucket, as one replay of a CUDA graph
 (`PrefillGraphs`): the host issues one launch in place of ~64 operations a
 layer.
+
+The engine serves the dense and moe families.  A moe layer's experts give
+no rows to what is not a token (a bucket's pad rows, idle decode lanes),
+and an `ExpertTally` on the card counts the experts each layer run
+touched; the host counts the layer runs and rows (``moe_layer_runs.<kind>``,
+``moe_rows``).
 """
 from __future__ import annotations
 
@@ -45,8 +51,10 @@ from repro_torch.core.spans import Tracer
 from repro_torch.hardware import resolve_device
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_grouped_gemm import moe_grouped_gemm
 from repro_torch.models import layers as L
 from repro_torch.models import model as mdl
+from repro_torch.models import moe as MOE
 from repro_torch.serving.kvcache import PagedKVCache, PrefixHit
 
 
@@ -113,16 +121,68 @@ class PrefillState:
         return k, v
 
 
-def layer_slice(cfg: ModelConfig, params, x: torch.Tensor, lo: int, hi: int):
-    """Layers [lo, hi) of a prefill from position 0: (x, each layer's
-    KVCache (B, KV, S, hd))."""
+#: decode lane counts an `ExpertTally` tells apart
+TALLY_LANES = 64
+
+
+class ExpertTally:
+    """How many experts each moe layer run gave rows to, summed on the card
+    by kind of run (`moe.tally_into`), so a graph's replay counts as an
+    eager run does: one int64 for prefill, then one per count of active
+    decode lanes (1..TALLY_LANES).  `read` folds what was added since the
+    last read into a tracer's ``moe_experts_touched.<kind>`` counters, and
+    B4's launches into ``moe_grouped_gemm_launches``, on a readback the
+    engine makes anyway (a token's): it adds no copy and no synchronise."""
+
+    def __init__(self, device):
+        self.t = torch.zeros(1 + TALLY_LANES, dtype=torch.long, device=device)
+        self.reset()
+
+    @staticmethod
+    def kind(lanes: int) -> str:
+        """The kind of a run of `lanes` decode lanes (0: a prefill)."""
+        return f"decode_{lanes}" if lanes else "prefill"
+
+    def slot(self, lanes: int) -> torch.Tensor:
+        if lanes > TALLY_LANES:
+            raise ValueError(f"{lanes} decode lanes: the tally holds "
+                             f"{TALLY_LANES}")
+        return self.t[lanes]
+
+    def reset(self) -> None:
+        """Forget every run so far (a backend's reset: the warm-up's)."""
+        self.t.zero_()
+        self.seen = [0] * self.t.numel()
+        self.launches = moe_grouped_gemm.launches
+
+    def read(self, head: torch.Tensor, tracer: Tracer) -> List[int]:
+        """`head`'s values (int64 on the card), read in one copy with the
+        tallies, which go to `tracer`."""
+        n = head.numel()
+        vals = torch.cat([head.reshape(n), self.t]).tolist()
+        now = vals[n:]
+        if now != self.seen:
+            for i, (a, b) in enumerate(zip(now, self.seen)):
+                if a != b:
+                    tracer.count("moe_experts_touched." + self.kind(i), a - b)
+            self.seen = now
+        launches = moe_grouped_gemm.launches
+        if launches != self.launches:
+            tracer.count("moe_grouped_gemm_launches", launches - self.launches)
+            self.launches = launches
+        return vals[:n]
+
+
+def layer_slice(cfg: ModelConfig, params, x: torch.Tensor, lo: int, hi: int,
+                live: Optional[torch.Tensor] = None):
+    """Layers [lo, hi) of a prefill from position 0, each with its own
+    window and RoPE (`model.serve_layer`): (x, each layer's KVCache (B, KV,
+    S, hd)).  live (B, S): the rows that are tokens (moe)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     kvs = []
-    for pl in params["layers"][lo:hi]:
-        x, kv = mdl._dense_layer(cfg, pl, x, positions,
-                                 sliding_window=cfg.sliding_window,
-                                 impl="auto", write_cache=True)
+    for li in range(lo, hi):
+        x, kv = mdl.serve_layer(cfg, params, li, x, positions, live=live)
         kvs.append(kv)
     return x, kvs
 
@@ -149,8 +209,14 @@ class PrefillGraphs:
     shared by every bucket.  `run` clones the real rows out, so nothing a
     later call reads aliases a static buffer or the graphs' memory pool.
     Replays are sequential on the caller's stream.  A capture launches B1
-    without running it, so it takes its launches off `flash_attention`'s
-    count and each replay adds them back."""
+    (and B4) without running them, so it takes their launches off the
+    kernels' counts and each replay adds them back.  moe: the count of real
+    rows lies in a static scalar that `_stage` fills, so the pad rows take
+    no expert, and the experts' tally (`tally`, which the engines sharing
+    these graphs share) is added to inside the graph."""
+
+    #: the hand kernels whose launches a graph holds
+    KERNELS = (flash_attention, moe_grouped_gemm)
 
     def __init__(self, cfg: ModelConfig, params, *, device, max_len: int,
                  tracer: Tracer):
@@ -158,9 +224,12 @@ class PrefillGraphs:
         self.device = resolve_device(device)
         self.buckets = tuple(b for b in BUCKETS if b <= max_len)
         self.graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
-        self._launches: Dict[int, int] = {}     # B1 launches in each graph
+        #: each graph's launches of each of `KERNELS`
+        self._launches: Dict[int, Tuple[int, ...]] = {}
         self._bufs: Optional[Tuple[torch.Tensor, ...]] = None
         self._stream = self._pool = None
+        self.tally = (ExpertTally(self.device) if cfg.family == "moe"
+                      else None)
 
     def bucket(self, S: int) -> Optional[int]:
         """The bucket a prompt of S tokens runs at; None above the last."""
@@ -174,20 +243,27 @@ class PrefillGraphs:
             kv = (cfg.num_layers, cfg.num_kv_heads, b, cfg.head_dim)
             self._bufs = (torch.zeros((1, b, cfg.d_model), **kw),
                           torch.zeros((1, b, cfg.d_model), **kw),
-                          torch.zeros(kv, **kw), torch.zeros(kv, **kw))
+                          torch.zeros(kv, **kw), torch.zeros(kv, **kw),
+                          torch.zeros((), dtype=torch.int32,
+                                      device=self.device))
         return self._bufs
 
     def _body(self, b: int) -> None:
         """The captured work at bucket b: `layer_slice` a layer at a time
         over the static input's first b rows (so the pool holds one layer's
         K/V, not the stack's), each layer's K/V and the last x into the
-        static outputs."""
-        x_in, x_out, k_out, v_out = self._buffers()
+        static outputs (moe: the rows below the staged count live, the
+        experts tallied)."""
+        x_in, x_out, k_out, v_out, n_live = self._buffers()
         x = x_in[:, :b]
-        for i in range(self.cfg.num_layers):
-            x, (kv,) = layer_slice(self.cfg, self.params, x, i, i + 1)
-            k_out[i, :, :b].copy_(kv.k[0])
-            v_out[i, :, :b].copy_(kv.v[0])
+        live = (torch.arange(b, device=x.device) < n_live)[None] \
+            if self.tally is not None else None
+        with MOE.tally_into(None if self.tally is None else self.tally.slot(0)):
+            for i in range(self.cfg.num_layers):
+                x, (kv,) = layer_slice(self.cfg, self.params, x, i, i + 1,
+                                       live=live)
+                k_out[i, :, :b].copy_(kv.k[0])
+                v_out[i, :, :b].copy_(kv.v[0])
         x_out[:, :b].copy_(x)
 
     def capture(self, b: int) -> None:
@@ -206,7 +282,7 @@ class PrefillGraphs:
                 self._body(self.buckets[0])
         graph = torch.cuda.CUDAGraph()
         self._stream.wait_stream(main)
-        before = flash_attention.launches
+        before = [k.launches for k in self.KERNELS]
         with torch.cuda.stream(self._stream):
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
@@ -215,8 +291,10 @@ class PrefillGraphs:
             finally:
                 graph.capture_end()
         main.wait_stream(self._stream)
-        self._launches[b] = flash_attention.launches - before
-        _build.count_launch(flash_attention, -self._launches[b])
+        self._launches[b] = tuple(k.launches - n
+                                  for k, n in zip(self.KERNELS, before))
+        for k, n in zip(self.KERNELS, self._launches[b]):
+            _build.count_launch(k, -n)
         self.graphs[b] = graph
         self.tracer.count("prefill_graph_captures")
 
@@ -234,14 +312,16 @@ class PrefillGraphs:
         bucket zeroed; the bucket."""
         S = x.shape[1]
         b = self.bucket(S)
-        x_in = self._buffers()[0]
+        x_in, *_, n_live = self._buffers()
         x_in[:, :S].copy_(x)
         x_in[:, S:b].zero_()
+        if self.tally is not None:
+            n_live.fill_(S)
         return b
 
     def _real_rows(self, S: int):
         """Clones of the static outputs' first S rows: (x, K, V)."""
-        _, x_out, k_out, v_out = self._buffers()
+        _, x_out, k_out, v_out, _ = self._buffers()
         return (x_out[:, :S].clone(), k_out[:, :, :S].clone(),
                 v_out[:, :, :S].clone())
 
@@ -251,7 +331,8 @@ class PrefillGraphs:
         b = self._stage(x)
         self.capture(b)                 # lazily, where no warm-up ran
         self.graphs[b].replay()
-        _build.count_launch(flash_attention, self._launches[b])
+        for k, n in zip(self.KERNELS, self._launches[b]):
+            _build.count_launch(k, n)
         return self._real_rows(x.shape[1])
 
 
@@ -264,10 +345,10 @@ class ReplicaEngine:
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  device="cuda", tracer: Optional[Tracer] = None,
                  graphs: Optional[PrefillGraphs] = None):
-        if cfg.family != "dense":
-            raise NotImplementedError("the engine serves the dense family; the "
-                                      "others run through the model API "
-                                      "(launch/quickstart.py)")
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError("the engine serves the dense and moe "
+                                      "families; the others run through the "
+                                      "model API (launch/quickstart.py)")
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else Tracer()
         self.tracer.ranges = _profiler_range
@@ -293,6 +374,9 @@ class ReplicaEngine:
         #: the whole-stack prefill graphs the caller shares, used on the card
         #: only (None: every prefill runs eagerly)
         self.graphs = graphs if self.device.type == "cuda" else None
+        #: moe: the experts' tally, the graphs' where the caller shares some
+        self.tally = (None if cfg.family != "moe" else graphs.tally
+                      if graphs is not None else ExpertTally(self.device))
 
     # ---- model pieces -------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -301,33 +385,23 @@ class ReplicaEngine:
     def _suffix_slice(self, x: torch.Tensor, pk: torch.Tensor,
                       pv: torch.Tensor, lo: int, hi: int):
         """Layer slice for a SUFFIX prefill: x covers only the uncached
-        suffix; pk/pv ((hi-lo), KV, P, hd) is the reused prefix KV.  Mirrors
-        `_dense_layer` with attention over [prefix ‖ suffix] at query
-        offset P."""
-        cfg = self.cfg
+        suffix; pk/pv ((hi-lo), KV, P, hd) is the reused prefix KV.  The
+        model's own layer (`model.serve_layer`) at positions P..P+S-1, its
+        core attention over [prefix ‖ suffix] at query offset P."""
         B, S, _ = x.shape
         P = pk.shape[2]
-        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         positions = torch.arange(P, P + S, device=x.device)[None].expand(B, S)
         kvs = []
-        for i, pl in enumerate(self.params["layers"][lo:hi]):
-            attn = pl["attn"]
-            h = L.rms_norm(x, pl["ln1"], cfg.norm_eps)
-            q = L.linear(h, attn["wq"], attn.get("bq")).reshape(B, S, H, hd)
-            k = L.linear(h, attn["wk"], attn.get("bk")).reshape(B, S, KV, hd)
-            v = L.linear(h, attn["wv"], attn.get("bv")).reshape(B, S, KV, hd)
-            q = L.rope(q, positions, cfg.rope_theta)
-            k = L.rope(k, positions, cfg.rope_theta)
-            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            k_all = torch.cat([pk[i][None].to(kh.dtype), kh], dim=2)
-            v_all = torch.cat([pv[i][None].to(vh.dtype), vh], dim=2)
-            o = ops.attention(qh, k_all, v_all, causal=True,
-                              sliding_window=cfg.sliding_window,
-                              q_offset=P, impl="auto")
-            o = o.transpose(1, 2).reshape(B, S, H * hd)
-            x = x + L.linear(o, attn["wo"])
-            x = x + L.swiglu(L.rms_norm(x, pl["ln2"], cfg.norm_eps), pl["mlp"])
-            kvs.append(L.KVCache(k=kh, v=vh))
+        for i, li in enumerate(range(lo, hi)):
+            def attn_fn(qh, kh, vh, *, causal, sliding_window, i=i):
+                k_all = torch.cat([pk[i][None].to(kh.dtype), kh], dim=2)
+                v_all = torch.cat([pv[i][None].to(vh.dtype), vh], dim=2)
+                return ops.attention(qh, k_all, v_all, causal=causal,
+                                     sliding_window=sliding_window,
+                                     q_offset=P, impl="auto")
+            x, kv = mdl.serve_layer(self.cfg, self.params, li, x, positions,
+                                    attn_fn=attn_fn)
+            kvs.append(kv)
         return x, kvs
 
     def _finalize(self, x: torch.Tensor) -> torch.Tensor:
@@ -381,7 +455,8 @@ class ReplicaEngine:
                 tr.count("prefill_graph_tokens", S)
                 tr.count("prefill_graph_pad_tokens", b - S)
             else:
-                with tr.span("engine.prefill_quantum.layers", record=True):
+                with tr.span("engine.prefill_quantum.layers", record=True), \
+                        MOE.tally_into(self._tally_slot(0)):
                     if st.prefix_k is not None:
                         x, kvs = self._suffix_slice(
                             st.x, st.prefix_k[lo:hi], st.prefix_v[lo:hi],
@@ -395,7 +470,26 @@ class ReplicaEngine:
                     st.kv_v.append(kv.v)
             st.layer = hi
             tr.count("prefill_layers", hi - lo)
+            self._count_moe(0, st.x.shape[1], hi - lo)
             return st, hi == nl
+
+    def _tally_slot(self, lanes: int) -> Optional[torch.Tensor]:
+        return None if self.tally is None else self.tally.slot(lanes)
+
+    def _count_moe(self, lanes: int, tokens: int, layers: int) -> None:
+        """moe: `layers` layer runs of `tokens` tokens (a prefill's, or
+        `lanes` decode lanes')."""
+        if self.tally is not None:
+            tr = self.tracer
+            tr.count("moe_layer_runs." + ExpertTally.kind(lanes), layers)
+            tr.count("moe_rows", tokens * self.cfg.experts_per_token * layers)
+
+    def read_tokens(self, t: torch.Tensor) -> List[int]:
+        """Token ids on the card (int64), read back: with the experts'
+        tally in the same copy where the model is moe."""
+        if self.tally is None:
+            return t.tolist()
+        return self.tally.read(t, self.tracer)
 
     def prefill_logits(self, st: PrefillState) -> torch.Tensor:
         assert st.layer == self.cfg.num_layers
@@ -566,7 +660,9 @@ class ReplicaEngine:
         with tr.span("engine.decode_iteration", record=True,
                      args=lambda: dict(lanes=[(self.slot_rid[s], lens[s])
                                               for s in tokens])):
-            tok = [0] * self.max_slots
+            # moe: an idle lane's token is -1 (its experts none), on the
+            # copy the step makes anyway
+            tok = [0 if self.tally is None else -1] * self.max_slots
             for s, t in tokens.items():
                 tok[s] = int(t)
             if self._view is None:
@@ -591,9 +687,15 @@ class ReplicaEngine:
             cache = {"len": lens_t, "k": cache_k, "v": cache_v}
             # the step writes every slot's new K/V into the view in place
             # (inactive slots write at masked positions, as in the reference)
-            with tr.span("engine.decode_iteration.step", record=True):
+            with tr.span("engine.decode_iteration.step", record=True), \
+                    MOE.tally_into(self._tally_slot(len(tokens))):
+                active = None
+                if self.tally is not None:
+                    active = tok_t >= 0
+                    tok_t = tok_t.clamp_min(0)
                 logits, _ = mdl.decode_step(self.cfg, self.params, cache,
-                                            tok_t, impl="auto")
+                                            tok_t, impl="auto", active=active)
+            self._count_moe(len(tokens), len(tokens), self.cfg.num_layers)
             # append the new token's KV back to the pool — active slots
             # only; slots reserved their full budget at admission, so this
             # never allocates and cannot fail mid-iteration
@@ -605,5 +707,5 @@ class ReplicaEngine:
                                              cache_v[:, s, :, pos])
             with tr.span("engine.decode_iteration.readback", wait=True,
                          record=True):
-                nxt = logits.argmax(-1).tolist()
+                nxt = self.read_tokens(logits.argmax(-1))
             return {s: nxt[s] for s in tokens}

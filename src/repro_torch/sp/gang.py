@@ -16,7 +16,7 @@ quantum at equal per-device compute, so SP prefill completes in ~N x fewer
 engine quanta while preemption latency (one quantum) stays bounded.
 
 The mesh is single-controller: this process drives every rank.  A layer
-quantum runs `model._dense_layer` for each rank in a thread of its own
+quantum runs `model.serve_layer` for each rank in a thread of its own
 (`sp.common.lockstep`), and the layer's core attention (the `attn_fn` hook) meets
 the other ranks there: one thread runs the hybrid SP attention over every
 rank's q/k/v and hands each rank its output.  A rank is any torch device:
@@ -156,7 +156,7 @@ class GangSPRunner:
     def quantum(self, st: GangPrefillState,
                 layers: int) -> Tuple[GangPrefillState, bool]:
         """Advance up to `layers` layers (the gang-scaled quantum).  Each
-        rank runs the layer body, `model._dense_layer` — projections, RoPE,
+        rank runs the layer body, `model.serve_layer` — projections, RoPE,
         residuals and MLP shared with the single-replica engine path — on
         its shard with GLOBAL RoPE positions, and its core attention is the
         hybrid SP attention over every rank (the `attn_fn` hook)."""
@@ -174,11 +174,9 @@ class GangSPRunner:
                 return meet(qh, kh, vh, causal, sliding_window)
 
             kvs = []
-            for pl in self._rank_params(rank)["layers"][lo:hi]:
-                x, kv = mdl._dense_layer(cfg, pl, x, positions,
-                                         sliding_window=cfg.sliding_window,
-                                         impl="auto", write_cache=True,
-                                         attn_fn=attn_fn)
+            for li in range(lo, hi):
+                x, kv = mdl.serve_layer(cfg, self._rank_params(rank), li, x,
+                                        positions, attn_fn=attn_fn)
                 kvs.append(kv)
             return x, kvs
 

@@ -449,8 +449,8 @@ def test_dropped_expert_partial_reads_above_the_limit(models, monkeypatch):
     partial = moe.expert_partial
     last = cfg.num_experts - cfg.num_experts // 4
 
-    def dropping(cfg_, p, r, x, *, e0=0, tokens=None):
-        y = partial(cfg_, p, r, x, e0=e0, tokens=tokens)
+    def dropping(cfg_, p, r, x, *, e0=0, tokens=None, **kw):
+        y = partial(cfg_, p, r, x, e0=e0, tokens=tokens, **kw)
         return torch.zeros_like(y) if e0 == last else y
     monkeypatch.setattr(moe, "expert_partial", dropping)
     got, _, _, _ = _partitioned(cfg, params, "moe8", _mesh((1, 4)), tokens=toks)
